@@ -1,0 +1,130 @@
+"""User-facing factory and bundle: create_emulator / NBodyEmulator.
+
+Counterpart of ``jax_nbody_emulator_with_dj_tpu/emulator.py``.  Ported so
+far: the premodulated displacement model (``premodulate=True,
+compute_vel=False``), with the style fold done at creation, and the
+hierarchical runtime as its processor.  The other combinations raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .cosmology import growth_factor
+from .hierarchical import HierarchicalConfig, HierarchicalProcessor
+from .models.cores import NBodyEmulatorCore
+from .ops.style import premodulate_layer, style_vector
+
+
+@dataclass
+class NBodyEmulator:
+    """Bundle of model + params + (optional) hierarchical processor."""
+
+    model: NBodyEmulatorCore
+    params: dict
+    processor: HierarchicalProcessor | None
+    dtype: torch.dtype = torch.float32
+    device: torch.device = torch.device("cpu")
+
+    def apply(self, x, z, Om):
+        """Run the model directly on a (padded) (B, C, D, H, W) or (C, D, H, W) tensor."""
+        Dz = torch.as_tensor(growth_factor(z, Om), dtype=torch.float32)
+        params = _tree_to(self.params, self.device)
+        with torch.no_grad():
+            return self.model.apply(params, x.to(self.device, self.dtype), Dz)
+
+    def process_box(self, input_box, z, Om, **kw):
+        if self.processor is None:
+            raise ValueError("No processor created; pass processor_config= to create_emulator.")
+        return self.processor.process_box(input_box, z, Om, **kw)
+
+    __call__ = apply
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _modulate_tree(params: dict, s, *, eps: float) -> dict:
+    out = {"params": {}}
+    for block_name, block in params["params"].items():
+        out["params"][block_name] = {
+            layer_name: premodulate_layer(layer, s, eps=eps) if "style_weight" in layer else layer
+            for layer_name, layer in block.items()
+        }
+    return out
+
+
+def modulate_emulator_parameters(params: dict, z, Om, eps: float = 1e-8) -> dict:
+    """Fold style into fixed-cosmology weights (displacement-only models)."""
+    Dz = growth_factor(z, Om)
+    s = style_vector(float(Om), float(Dz))[0]
+    return _modulate_tree(params, s, eps=eps)
+
+
+def create_emulator(
+    premodulate: bool = False,
+    compute_vel: bool = True,
+    params: dict | None = None,
+    processor_config=None,
+    premodulate_z: float | None = None,
+    premodulate_Om: float | None = None,
+    dtype: torch.dtype | None = None,
+    device=None,
+    **model_kwargs,
+) -> NBodyEmulator:
+    """Build an emulator bundle.
+
+    Args:
+        premodulate: fold style into weights at creation (fixed cosmology).
+            Only ``True`` is ported.
+        compute_vel: the model also returns velocities.  Only ``False`` is ported.
+        params: parameter tree (dicts of torch tensors, DHWIO kernels;
+            ``utils.params.params_from_jax`` converts a JAX tree,
+            ``utils.params.load_params_npz`` reads a saved one).  Required:
+            the port ships no pretrained weights.
+        processor_config: a ``HierarchicalConfig`` builds the hierarchical
+            runtime for ``process_box``.
+        premodulate_z / premodulate_Om: fixed cosmology for the fold.
+        dtype: compute dtype; ``processor_config.dtype`` wins if present.
+        device: torch device of the processor and of ``apply`` (default CPU).
+        **model_kwargs: forwarded to the model (in_chan, out_chan, mid_chan,
+            eps, levels, data_format).
+    """
+    if not premodulate:
+        raise NotImplementedError("style (non-premodulated) cores are not ported: ROADMAP item A3")
+    if compute_vel:
+        raise NotImplementedError("velocity models are not ported: ROADMAP item A2")
+    model = NBodyEmulatorCore(**model_kwargs)
+    device = torch.device(device if device is not None else "cpu")
+
+    if params is None:
+        raise ValueError("pass params=: the port ships no pretrained weights")
+    has_style = any(
+        "style_weight" in layer
+        for block in params["params"].values()
+        for layer in block.values()
+    )
+    if has_style:
+        if premodulate_z is None or premodulate_Om is None:
+            raise ValueError("premodulate_z and premodulate_Om are required when premodulate=True")
+        params = modulate_emulator_parameters(params, premodulate_z, premodulate_Om, eps=model.eps)
+
+    processor = None
+    if processor_config is not None:
+        if not isinstance(processor_config, HierarchicalConfig):
+            raise NotImplementedError(
+                f"{type(processor_config).__name__} is not ported: ROADMAP items A5/A6"
+            )
+        processor = HierarchicalProcessor(model, params, processor_config, device=device)
+        dtype = processor_config.dtype
+    elif dtype is None:
+        dtype = torch.float32
+
+    return NBodyEmulator(model=model, params=params, processor=processor, dtype=dtype,
+                         device=device)

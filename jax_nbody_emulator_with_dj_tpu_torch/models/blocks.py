@@ -1,0 +1,391 @@
+"""ResNet / Resample blocks over plain dicts of torch tensors (displacement).
+
+Counterpart of ``jax_nbody_emulator_with_dj_tpu/models/blocks.py``.  A ResNet
+block ``'CACA'`` runs a 1x1 skip conv cropped by ``num_conv`` voxels per side
+to match the VALID-conv shrinkage of the main path (conv3 -> act -> conv3 ->
+[residual add] -> act); a Resample block is ``'DA'`` (stride-2 down conv) or
+``'UA'`` (2x up conv).  Parameters are nested dicts with the JAX package's
+keys and DHWIO kernels: ``{'skip': {...}, 'conv_0': {...}, 'conv_1': {...}}``.
+
+The second half holds the packed (space-to-depth) forms the hierarchical
+runtime runs, with weights packed once per processor build.  Styled and
+velocity (tangent) layers are not ported yet (ROADMAP items A2/A3).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops import s2d
+from ..ops.conv3d import conv1x1, conv3d, conv_down2, conv_up2, leaky_relu
+from ..ops.winograd import transform_packed_w3
+from ..ops.winograd_cuda import conv3d_wino_packed
+
+_KSIZE = {"conv": 3, "skip": 1, "down": 2, "up": 2}  # 'C', skip, 'D', 'U'
+
+
+def _run_conv(x, w, kind, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """One conv of ``kind``; the resample convs are channels-last only."""
+    if kind == "skip":
+        return conv1x1(x, w, in_fmt=in_fmt, out_fmt=out_fmt)
+    if kind == "up":
+        return conv_up2(x, w)
+    if kind == "down":
+        return conv_down2(x, w)
+    return conv3d(x, w, in_fmt=in_fmt, out_fmt=out_fmt)
+
+
+# ---------------------------------------------------------------------------
+# Init (seeded numpy; lecun-normal weights, as the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def init_conv_layer(rng, cin, cout, kind, *, style: bool, style_size: int = 2):
+    """Random init of one conv layer's float32 params from a numpy Generator."""
+    ksz = _KSIZE[kind]
+    std = math.sqrt(1.0 / (cin * ksz**3))
+    p = {
+        "weight": torch.from_numpy(
+            (rng.standard_normal((ksz, ksz, ksz, cin, cout)) * std).astype(np.float32)
+        ),
+        "bias": torch.zeros(cout),
+    }
+    if style:
+        p["style_weight"] = torch.from_numpy(
+            (rng.standard_normal((cin, style_size)) * math.sqrt(1.0 / style_size)).astype(np.float32)
+        )
+        p["style_bias"] = torch.ones(cin)
+    return p
+
+
+def _resnet_channel_plan(seq, cin, cout):
+    """Per-conv (cin, cout) plan for a ResNet main path."""
+    main_seq = seq[:-1] if seq.endswith("A") else seq
+    num_conv = main_seq.count("C")
+    mid = max(cin, cout)
+    plan = []
+    for i in range(num_conv):
+        ci = cin if i == 0 else mid
+        co = cout if i == num_conv - 1 else mid
+        plan.append((ci, co))
+    return main_seq, num_conv, plan
+
+
+def init_resnet_block(rng, seq, cin, cout, *, style: bool, style_size: int = 2):
+    _, _, plan = _resnet_channel_plan(seq, cin, cout)
+    params = {"skip": init_conv_layer(rng, cin, cout, "skip", style=style, style_size=style_size)}
+    for i, (ci, co) in enumerate(plan):
+        params[f"conv_{i}"] = init_conv_layer(rng, ci, co, "conv", style=style, style_size=style_size)
+    return params
+
+
+def init_resample_block(rng, seq, cin, cout, *, style: bool, style_size: int = 2):
+    kind = "down" if "D" in seq else "up"
+    return {"conv_0": init_conv_layer(rng, cin, cout, kind, style=style, style_size=style_size)}
+
+
+# ---------------------------------------------------------------------------
+# Unpacked apply
+# ---------------------------------------------------------------------------
+
+
+def apply_conv_layer(p, x, kind, *, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """One premodulated conv layer (+ float32 bias), in ``x``'s dtype."""
+    bias = p["bias"].float()
+    bias = bias[:, None, None, None] if out_fmt == "NCDHW" else bias
+    return (_run_conv(x, p["weight"], kind, in_fmt, out_fmt) + bias).to(x.dtype)
+
+
+def _spatial_axes(fmt: str):
+    return (2, 3, 4) if fmt == "NCDHW" else (1, 2, 3)
+
+
+def _center_crop(t, spatial, fmt: str = "NDHWC"):
+    """Symmetric center crop of the spatial dims to the given size."""
+    slices = [slice(None)] * 5
+    for ax, target in zip(_spatial_axes(fmt), spatial):
+        dim = t.shape[ax]
+        c = dim - target
+        if c < 0 or c % 2:
+            raise ValueError(f"cannot center-crop {tuple(t.shape)} to {tuple(spatial)}")
+        if c:
+            slices[ax] = slice(c // 2, dim - c // 2)
+    return t[tuple(slices)]
+
+
+def apply_resnet_block(p, x, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """Primal ResNet block; the first conv (and skip) read ``in_fmt``, the last
+    conv (and skip) write ``out_fmt``, interior activations are channels-last."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    last_act = seq.endswith("A") and main_seq != seq
+    y = apply_conv_layer(p["skip"], x, "skip", in_fmt=in_fmt, out_fmt=out_fmt)
+    if num_conv > 0:
+        target = tuple(y.shape[ax] - 2 * num_conv for ax in _spatial_axes(out_fmt))
+        y = _center_crop(y, target, out_fmt)
+    conv_idx = 0
+    for op in main_seq:
+        if op == "C":
+            fi = in_fmt if conv_idx == 0 else "NDHWC"
+            fo = out_fmt if conv_idx == num_conv - 1 else "NDHWC"
+            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, "conv", in_fmt=fi, out_fmt=fo)
+            conv_idx += 1
+        elif op == "A":
+            x = leaky_relu(x)
+        else:
+            raise ValueError(f"layer type {op!r} not supported (use C or A)")
+    x = x + y
+    if last_act:
+        x = leaky_relu(x)
+    return x
+
+
+def apply_resample_block(p, x, seq):
+    """Primal resample block: 'DA' (down) or 'UA' (up); channels-last."""
+    conv_idx = 0
+    for op in seq:
+        if op in ("D", "U"):
+            kind = "down" if op == "D" else "up"
+            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, kind)
+            conv_idx += 1
+        elif op == "A":
+            x = leaky_relu(x)
+        else:
+            raise ValueError(f"layer type {op!r} not supported")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Space-to-depth packed execution (premodulated 64-channel interior)
+#
+# Activations stay W-packed ((B, D, H, W/2, 2C), ops/s2d.py) across whole
+# phases.  Weights are packed ONCE per processor build, already in the
+# compute dtype and on the device: 3x3x3 kernels in torch's OIDHW layout,
+# Winograd kernels ("wh") in bf16, and the per-part weights of the decoder's
+# concat inputs split into contiguous tensors.
+# ---------------------------------------------------------------------------
+
+_PACKERS = {
+    "conv": s2d.pack_w3,
+    "skip": s2d.pack_w1,
+    "down": s2d.pack_w_down,
+    "up": s2d.pack_w_up,
+}
+
+_PACKED_OPS = {
+    "conv": s2d.conv3_packed,
+    "skip": s2d.conv1_packed,
+    "down": s2d.down_packed,
+    "up": s2d.up_packed,
+}
+
+
+def _wino_eligible(kind: str, wp) -> bool:
+    """3x3x3 conv sites whose packed operands are >= 128 channels wide on
+    both sides; narrow outputs (the model's 64->3 tail) keep the direct conv."""
+    return kind == "conv" and wp.shape[-1] >= 128 and wp.shape[-2] >= 128
+
+
+def _cat_weight_parts(w, kind, n):
+    """Split a groups=n packed weight (JAX layout) into per-part operands.
+
+    'down' weights fold the 8 spatial taps outside the channel rows, so the
+    split goes through a (8, channels, Co) view.
+    """
+    if kind == "down":
+        co = w.shape[-1]
+        w3 = w.reshape(8, -1, co)
+        rows = w3.shape[1] // n
+        return [w3[:, i * rows:(i + 1) * rows].reshape(-1, co) for i in range(n)]
+    rows = w.shape[-2] // n
+    return [w[..., i * rows:(i + 1) * rows, :] for i in range(n)]
+
+
+def pack_conv_layer_params(p, kind, *, groups: int = 1, wino: bool = False,
+                           dtype=torch.float32, device=None):
+    """Pre-pack one premodulated conv layer for packed execution.
+
+    Returns ``{"w", "b"}`` (plus ``"wh"`` for Winograd-eligible convs when
+    ``wino``); with ``groups > 1`` the weights are the list of per-part
+    operands of the implicit concat input instead.
+    """
+    wp = _PACKERS[kind](p["weight"].float(), groups)
+    parts = _cat_weight_parts(wp, kind, groups)
+
+    def dev(t, dt):
+        return t.to(device=device, dtype=dt).contiguous()
+
+    w = [dev(s2d.oidhw_w3(t) if kind == "conv" else t, dtype) for t in parts]
+    out = {
+        "w": w[0] if groups == 1 else w,
+        "b": dev(s2d.pack_bias(p["bias"].float()), torch.float32),
+    }
+    if wino and _wino_eligible(kind, wp):
+        wh = [dev(t, torch.bfloat16)
+              for t in _cat_weight_parts(transform_packed_w3(wp), kind, groups)]
+        out["wh"] = wh[0] if groups == 1 else wh
+    return out
+
+
+def pack_resnet_params(p, seq, *, groups: int = 1, wino: bool = False, dtype=torch.float32, device=None):
+    _, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    kw = dict(dtype=dtype, device=device)
+    out = {"skip": pack_conv_layer_params(p["skip"], "skip", groups=groups, **kw)}
+    for i in range(num_conv):
+        out[f"conv_{i}"] = pack_conv_layer_params(
+            p[f"conv_{i}"], "conv", groups=groups if i == 0 else 1, wino=wino, **kw
+        )
+    return out
+
+
+def pack_resample_params(p, seq, *, dtype=torch.float32, device=None):
+    kind = "down" if "D" in seq else "up"
+    return {"conv_0": pack_conv_layer_params(p["conv_0"], kind, dtype=dtype, device=device)}
+
+
+def _wino_conv(xp, wh, bias=None, leaky=False):
+    """The Winograd conv with the JAX package's dtype contract: float32
+    input runs on bf16 operands with float32 output; any other non-bf16
+    input goes through bf16 and is cast back."""
+    out_dtype = None
+    cast_back = None
+    if xp.dtype == torch.float32:
+        out_dtype = torch.float32
+        xp = xp.to(torch.bfloat16)
+    elif xp.dtype != torch.bfloat16:
+        cast_back = xp.dtype
+        xp = xp.to(torch.bfloat16)
+    y = conv3d_wino_packed(xp, wh, bias, leaky=leaky, out_dtype=out_dtype)
+    return y.to(cast_back) if cast_back is not None else y
+
+
+def _apply_packed(pp, xp, kind, act: bool = False):
+    """One packed conv layer (+bias); ``act`` fuses the following LeakyReLU."""
+    if "wh" in pp:
+        return _wino_conv(xp, pp["wh"], pp["b"], leaky=act)
+    out_dtype = xp.dtype
+    z = _PACKED_OPS[kind](xp, pp["w"]) + pp["b"].to(xp.dtype)
+    if act:
+        z = leaky_relu(z)
+    return z.to(out_dtype)
+
+
+def _apply_packed_cat(pp, xs, kind, act: bool = False):
+    """Packed conv layer on an implicit channel concat of packed parts: one
+    conv per part (weights split at pack time), summed."""
+    out_dtype = xs[0].dtype
+    if "wh" in pp:
+        z = _wino_conv(xs[0], pp["wh"][0], pp["b"])  # bias rides part 0
+        for x, wi in zip(xs[1:], pp["wh"][1:]):
+            z = z + _wino_conv(x, wi)
+    else:
+        op = _PACKED_OPS[kind]
+        z = op(xs[0], pp["w"][0])
+        for x, wi in zip(xs[1:], pp["w"][1:]):
+            z = z + op(x, wi)
+        z = z + pp["b"].to(z.dtype)
+    if act:
+        z = leaky_relu(z)
+    return z.to(out_dtype)
+
+
+def _crop_packed(t, dhw_crop: int):
+    """Center crop by ``dhw_crop`` voxels/side in D, H and W (W in cells)."""
+    if dhw_crop == 0:
+        return t
+    c = dhw_crop
+    if c % 2:
+        raise ValueError("packed crops must be even in W")
+    return t[:, c:-c, c:-c, c // 2:-(c // 2), :]
+
+
+def _apply_packed_main(pp, seq, first):
+    """The conv/act main path of a packed ResNet block; ``first(fuse)`` runs
+    conv_0 (plain or on a concat), the rest are plain packed convs."""
+    main_seq, _, _ = _resnet_channel_plan(seq, 0, 0)
+    xp = None
+    conv_idx = 0
+    i = 0
+    while i < len(main_seq):
+        if main_seq[i] == "C":
+            fuse = i + 1 < len(main_seq) and main_seq[i + 1] == "A"
+            if conv_idx == 0:
+                xp = first(fuse)
+            else:
+                xp = _apply_packed(pp[f"conv_{conv_idx}"], xp, "conv", act=fuse)
+            conv_idx += 1
+            i += 2 if fuse else 1
+        else:  # 'A'
+            xp = leaky_relu(xp)
+            i += 1
+    return xp
+
+
+def apply_resnet_block_packed(pp, xp, seq):
+    """Packed premodulated ResNet block ('CACA'/'CAC')."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    y = _crop_packed(_apply_packed(pp["skip"], xp, "skip"), num_conv)
+    x_in = xp
+    xp = _apply_packed_main(
+        pp, seq, lambda fuse: _apply_packed(pp["conv_0"], x_in, "conv", act=fuse)
+    )
+    xp = xp + y
+    return leaky_relu(xp) if seq.endswith("A") and main_seq != seq else xp
+
+
+def apply_resnet_block_packed_cat(pp, xs, seq):
+    """``apply_resnet_block_packed`` on an implicit concat of packed parts
+    (the decoder's cat(skip, upsampled)); pp packed with groups=len(xs)."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    y = _crop_packed(_apply_packed_cat(pp["skip"], xs, "skip"), num_conv)
+    xp = _apply_packed_main(
+        pp, seq, lambda fuse: _apply_packed_cat(pp["conv_0"], xs, "conv", act=fuse)
+    )
+    xp = xp + y
+    return leaky_relu(xp) if seq.endswith("A") and main_seq != seq else xp
+
+
+def apply_resample_block_packed(pp, xp, seq):
+    xp = _apply_packed(pp["conv_0"], xp, "down" if "D" in seq else "up")
+    return leaky_relu(xp) if seq.endswith("A") else xp
+
+
+# ---------------------------------------------------------------------------
+# Entry block: the model's first 'CACA' block consumes the NCDHW C=3 input;
+# its first conv and skip are matmuls over stacked taps that emit the packed
+# channels-last layout directly.
+# ---------------------------------------------------------------------------
+
+
+def pack_resnet_entry_params(p, seq, *, wino: bool = False, dtype=torch.float32, device=None):
+    """Fold a 'CACA' entry block's params for packed NCDHW-input execution."""
+    _, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    if num_conv != 2:
+        raise ValueError("entry block is the model's first 'CACA' block")
+
+    def dev(t, dt):
+        return t.to(device=device, dtype=dt).contiguous()
+
+    return {
+        "conv_0": {
+            "w9": dev(s2d.entry_cols(s2d.pack_w3_entry(p["conv_0"]["weight"].float())), dtype),
+            "b": dev(s2d.pack_bias(p["conv_0"]["bias"].float()), torch.float32),
+        },
+        "conv_1": pack_conv_layer_params(p["conv_1"], "conv", wino=wino, dtype=dtype, device=device),
+        "skip": {
+            "w": dev(s2d.pack_w1_entry(p["skip"]["weight"].float()), dtype),
+            "b": dev(s2d.pack_bias(p["skip"]["bias"].float()), torch.float32),
+        },
+    }
+
+
+def apply_resnet_entry_packed(pp, x, seq="CACA"):
+    """Entry 'CACA' block: (B, C, D, H, W) NCDHW -> (B, D-4, H-4, (W-4)/2, 2*mid)."""
+    h = s2d.conv3_entry_im2col(x, pp["conv_0"]["w9"]) + pp["conv_0"]["b"].to(x.dtype)
+    h = leaky_relu(h)
+    h = _apply_packed(pp["conv_1"], h, "conv")
+    xs = x[:, :, 2:-2, 2:-2, 2:-2]
+    h = h + s2d.conv1_entry_packed(xs, pp["skip"]["w"]) + pp["skip"]["b"].to(x.dtype)
+    return leaky_relu(h)

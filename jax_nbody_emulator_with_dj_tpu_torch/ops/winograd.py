@@ -1,0 +1,84 @@
+"""F(2,3)^2 Winograd transform over (D, H) for the packed 3x3x2 interior conv.
+
+Counterpart of ``jax_nbody_emulator_with_dj_tpu/ops/winograd.py`` (F(2,3)
+only).  A 2x2 (D, H) output tile costs 16 point products instead of 36
+tap-MACs; the packed W axis keeps its exact 2-tap accumulation:
+
+    y[., a] = sum_a  AT (G wp[., a] G^T) (.) (BT x[., u+a] B) A
+
+``conv3_packed_wino`` is the plain PyTorch version of the hand-written CUDA
+kernel (``ops/winograd_cuda.py``, ``csrc/wino_f23.cu``): same inputs, same
+epilogue, and the same roundings as the kernel (and as the Pallas kernel it
+replaces) — the BT transform rounds to the operand dtype after each axis,
+the point products accumulate in float32, and the AT fold, bias and
+LeakyReLU run in float32 before one cast to the output dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
+_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
+_AT = ((1, 1, 1, 0), (0, 1, -1, -1))
+
+
+def transform_packed_w3(wp):
+    """Packed (3, 3, 2, 2Ci, 2Co) kernel -> Winograd (4, 4, 2, 2Ci, 2Co).
+
+    What[a, b, t] = sum_{kd, kh} G[a, kd] G[b, kh] wp[kd, kh, t], in float32
+    (G has exact halves), cast back to ``wp``'s dtype.
+    """
+    g = torch.tensor(_G, dtype=torch.float32, device=wp.device)
+    out = torch.einsum("ak,bl,kltcf->abtcf", g, g, wp.float())
+    return out.to(wp.dtype)
+
+
+def _bt(x, axis: int, n: int):
+    """BT of F(2,3) along ``axis`` -> new leading axis of 4 points.
+
+    Tile i reads rows 2i..2i+3; each BT row is a +-1 pair of them.
+    """
+    r = [x.narrow(axis, k, 2 * n - 1)[(slice(None),) * axis + (slice(None, None, 2),)]
+         for k in range(4)]
+    return torch.stack([r[0] - r[2], r[1] + r[2], r[2] - r[1], r[1] - r[3]])
+
+
+def conv3_packed_wino(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None):
+    """VALID (3,3,2)-tap packed conv via F(2,3)^2 Winograd, + bias + LeakyReLU.
+
+    Args:
+        xp: (B, D, H, WP, C2) packed input.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``.
+        bias: (F2/2,) or (F2,) float32 bias, or None.
+        leaky: apply LeakyReLU(0.01) after the bias.
+        out_dtype: output dtype (default ``xp.dtype``).
+    Returns (B, D-2, H-2, WP-1, F2).  Odd output extents are handled by
+    zero-padding the input to even ones and cropping.
+    """
+    out_dtype = out_dtype or xp.dtype
+    b, d, h, wpd, c2 = xp.shape
+    od, oh, ow = d - 2, h - 2, wpd - 1
+    nd, nh = (od + 1) // 2, (oh + 1) // 2
+    xp = F.pad(xp, (0, 0, 0, 0, 0, 2 * nh + 2 - h, 0, 2 * nd + 2 - d))
+    wh = wh.to(xp.dtype)
+    f2 = wh.shape[-1]
+    # Input transform, rounded to the operand dtype after each axis.
+    xd = _bt(xp, 1, nd)  # (4u, B, nd, Hp, WP, C2)
+    z = _bt(xd, 3, nh)  # (4v, 4u, B, nd, nh, WP, C2)
+    z = z.transpose(0, 1).float()  # (u, v, B, nd, nh, WP, C2)
+    zz = torch.cat([z[..., :ow, :], z[..., 1:, :]], dim=-1)  # taps a=0|a=1
+    zz = zz.reshape(4, 4, -1, 2 * c2)
+    wk = wh.float().reshape(4, 4, 2 * c2, f2)
+    s = torch.matmul(zz, wk)  # (u, v, M, F2), float32 accumulation
+    at = torch.tensor(_AT, dtype=torch.float32, device=xp.device)
+    y = torch.einsum("pu,qv,uvmf->pqmf", at, at, s)
+    y = y.reshape(2, 2, b, nd, nh, ow, f2).permute(2, 3, 0, 4, 1, 5, 6)
+    y = y.reshape(b, 2 * nd, 2 * nh, ow, f2)[:, :od, :oh]
+    if bias is not None:
+        bias = bias.float()
+        y = y + (bias if bias.shape[0] == f2 else bias.repeat(2))
+    if leaky:
+        y = F.leaky_relu(y, 0.01)
+    return y.to(out_dtype)

@@ -1,0 +1,138 @@
+"""The F(2,3)^2 Winograd packed conv kernel: build, bind, launch.
+
+Replaces ``jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py::
+conv3d_wino_pallas_packed``.  The kernel is CUDA C++ for ``sm_90a``
+(``csrc/wino_f23.cu``; its header says what bounds it and why it is built
+the way it is).  It is compiled with ``nvcc`` into a shared library with a
+plain C interface the first time a CUDA tensor reaches it, into ``_build/``
+beside the sources (git-ignored), and bound with ``ctypes``.
+
+``conv3d_wino_packed`` is the one entry point.  A CUDA tensor runs the
+kernel or raises; a CPU tensor runs the plain PyTorch version
+(``ops/winograd.py::conv3_packed_wino``), the same function with the same
+roundings.  There is no other route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .winograd import conv3_packed_wino
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "wino_f23.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lib = None
+build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    nvcc = Path(home) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}; set CUDA_HOME")
+    return str(nvcc)
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/wino_f23.cu`` (once per source version) and load it."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"wino_f23_{key}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.wino_f23_packed
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _check(xp, wh, out_dtype):
+    if xp.dim() != 5 or wh.dim() != 5:
+        raise ValueError(f"xp must be 5-D and wh (4,4,2,C2,F2), got {xp.shape}, {wh.shape}")
+    c2, f2 = wh.shape[-2], wh.shape[-1]
+    if tuple(wh.shape[:3]) != (4, 4, 2) or xp.shape[-1] != c2:
+        raise ValueError(f"wh {tuple(wh.shape)} does not match xp {tuple(xp.shape)}")
+    if xp.dtype != torch.bfloat16 or wh.dtype != torch.bfloat16:
+        raise TypeError(f"kernel takes bf16 xp and wh, got {xp.dtype}, {wh.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or float32, got {out_dtype}")
+    if c2 % 32 or not 32 <= c2 <= 256 or f2 % 8 or f2 < 8:
+        raise ValueError(f"kernel takes C2 % 32 == 0 <= 256 and F2 % 8 == 0, got {c2}, {f2}")
+    if wh.device != xp.device or not wh.is_contiguous() or wh.data_ptr() % 16:
+        raise ValueError("wh must be a contiguous, 16-byte aligned tensor on xp's device")
+    if xp.stride(-1) != 1 or any(s % 8 for s in xp.stride()[:4]) or xp.data_ptr() % 16:
+        raise ValueError(f"xp needs contiguous channels and 16-byte rows, strides {xp.stride()}")
+    b, d, h, wp, _ = xp.shape
+    if d < 3 or h < 3 or wp < 2 or b < 1:
+        raise ValueError(f"xp {tuple(xp.shape)} is smaller than the 3x3x2 window")
+
+
+def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None):
+    """Packed Winograd conv: xp (B, D, H, WP, C2) -> (B, D-2, H-2, WP-1, F2).
+
+    Args:
+        xp: packed input; bf16 on CUDA.  Any strides with contiguous channels.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``; bf16 on CUDA.
+        bias: (F2/2,) or (F2,) float32 bias, or None.
+        leaky: fuse LeakyReLU(0.01).
+        out_dtype: bf16 or float32 (default: xp's dtype).
+    """
+    out_dtype = out_dtype or xp.dtype
+    if xp.device.type == "cpu":
+        return conv3_packed_wino(xp, wh, bias, leaky=leaky, out_dtype=out_dtype)
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    _check(xp, wh, out_dtype)
+    b, d, h, wp, c2 = xp.shape
+    f2 = wh.shape[-1]
+    if bias is None:
+        bias = torch.zeros(f2, dtype=torch.float32, device=xp.device)
+    else:
+        bias = bias.to(device=xp.device, dtype=torch.float32)
+        bias = (bias if bias.shape[0] == f2 else bias.repeat(2)).contiguous()
+    if bias.shape != (f2,):
+        raise ValueError(f"bias has {bias.shape[0]} entries, the conv {f2} outputs")
+    lib = build()
+    y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.wino_f23_packed(
+        xp.data_ptr(), wh.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        *xp.stride()[:4], b, d, h, wp, c2, f2, int(leaky),
+        int(out_dtype == torch.float32), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wino_f23 kernel launch failed with CUDA error {rc}")
+    conv3d_wino_packed.launches += 1
+    return y
+
+
+conv3d_wino_packed.launches = 0  # kernel launches since the last reset
