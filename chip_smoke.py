@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``jax_nbody_emulator_with_dj_tpu_torch/
-csrc``, holds it against its plain PyTorch version at the shapes the main
-path gives it, then drives the main path once at full width: a seeded
-premodulated displacement model (mid_chan=64, 3 levels, bf16) through
-``create_emulator`` -> ``HierarchicalProcessor.process_box`` on a 128^3 box,
-with the Winograd kernel on, against the same box with it off.  A small box
-is also held against the model's own forward on the wrap-padded input.
+Builds the port's CUDA kernels (B1, the Winograd conv, and B2, its fused
+factored-tangent pair) from ``jax_nbody_emulator_with_dj_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the shapes the main paths
+give it, then drives both paths at full width through ``create_emulator``
+-> ``HierarchicalProcessor.process_box`` with seeded premodulated models
+(mid_chan=64, 3 levels, bf16): the displacement model on a 128^3 box, and
+the displacement+velocity model on a 128^3 box (every pair site runs B2),
+each with the kernels on against the same box with them off, and one 256^3
+velocity box (whose phase 1 is wider than the pair kernel's _PAIR_W_MAX,
+so it also runs the two-B1 form).  16^3 boxes are held against the models'
+own forwards on the wrap-padded input.
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -28,8 +32,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GATE_KERNEL = 0.03  # max|d| / max|ref|, the JAX package's TPU kernel gate
+GATE_PAIR_F32 = 1e-5  # B2 vs plain, float32 outputs: only the summation order differs
+GATE_FLIPS = 1e-4  # share of elements where B2 and plain disagree on the sign of y
 GATE_SLICE = 0.02  # rel max error of the box, wino on vs off
-REPLACES = "jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py:259"
+GATE_VEL = 0.08  # velocity: std(v1 - v0) / std(v0), the JAX package's gate
+GATE_F32_VEL = 1e-3  # 16^3 f32 vel box vs model, rms: one LeakyReLU-tangent mask flip
+                     # at a pre-activation within rounding of 0 moved CPU boxes by 1-3e-4
+SOURCE = "jax_nbody_emulator_with_dj_tpu_torch/csrc/wino_f23.cu"
+PALLAS = "jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py"
 RUNS = 5  # warm process_box calls timed per configuration (median reported)
 
 
@@ -140,78 +150,229 @@ def phase_kernel():
     return rows
 
 
-def phase_small_box():
-    """Hierarchical runtime vs the model's own forward on a wrap-padded 16^3 box."""
-    from jax_nbody_emulator_with_dj_tpu_torch import HierarchicalConfig, create_emulator
-    from jax_nbody_emulator_with_dj_tpu_torch.hierarchical import _wrap_pad
+def _pair_errors(got, ref, fp32):
+    """y: max error.  dy: max error where kernel and plain version agree on
+    the sign of y (the LeakyReLU pair's mask), and the count of elements
+    where they do not."""
+    (y, dy), (y_ref, dy_ref) = [(t[0].float(), t[1].float()) for t in (got, ref)]
+    y_abs = (y - y_ref).abs().max().item()
+    agree = (y > 0) == (y_ref > 0)
+    dy_abs = torch.where(agree, (dy - dy_ref).abs(), torch.zeros_like(dy)).max().item()
+    y_err, dy_err = y_abs / y_ref.abs().max().item(), dy_abs / dy_ref.abs().max().item()
+    flips = (~agree).sum().item()
+    gate = GATE_PAIR_F32 if fp32 else GATE_KERNEL
+    ok = y_err < gate and dy_err < gate and flips < GATE_FLIPS * y.numel()
+    return dict(max_abs_err=max(y_abs, dy_abs), y_rel_err=y_err, dy_rel_err=dy_err,
+                sign_flips=flips, flip_share=flips / y.numel(), gate=gate), ok
+
+
+def phase_pair_kernel():
+    """Kernel B2 vs its plain version at the main path's pair shapes and
+    ragged ones; timed against the plain version and against the two-singles
+    form (two B1 launches + a torch epilogue) that runs above _PAIR_W_MAX."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.conv3d import leaky_relu_with_tangent
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd import (
+        conv3_packed_wino_pair,
+        transform_packed_w3,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda import (
+        conv3d_wino_packed,
+        conv3d_wino_pair_packed,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    whs = {}
+    for ci, co in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        w = torch.randn((3, 3, 3, ci, co), generator=gen, device=dev) / (27 * ci) ** 0.5
+        whs[(2 * ci, 2 * co)] = transform_packed_w3(s2d.pack_w3(w)).to(bf16).contiguous()
+    cases = [
+        # (name, xp shape, F2, bias and c, leaky, out dtype, timed, xp a strided view)
+        ("phase3_conv_l01", (1, 142, 142, 71, 128), 128, True, True, bf16, True, False),
+        ("phase3_conv_l01", (1, 142, 142, 71, 128), 128, True, True, f32, False, False),
+        ("phase2a_conv_l1", (1, 68, 68, 34, 128), 128, True, True, bf16, True, False),
+        ("decoder_conv0_part", (1, 36, 36, 18, 128), 256, False, False, bf16, True, False),
+        ("decoder_conv1", (1, 36, 36, 18, 256), 128, True, False, bf16, True, False),
+        # 256^3 phase 1: owp 129 > _PAIR_W_MAX, where the path runs the two singles
+        ("phase1_256_conv_l01", (1, 36, 260, 130, 128), 128, True, True, bf16, True, False),
+    ]
+    cases += [("ragged", (2, 13, 16, 21, 128), f2, bc, lk, od, False, view)
+              for f2, bc, lk, od, view in (
+                  (128, True, True, bf16, True), (128, True, True, f32, False),
+                  (128, False, False, f32, True), (128, True, False, bf16, False),
+                  (256, True, True, f32, True), (256, False, False, bf16, False))]
+    cases += [("ragged_c256", (1, 9, 11, 7, 256), 128, True, True, f32, False, True),
+              ("ragged_c256", (1, 9, 11, 7, 256), 256, True, True, bf16, False, False)]
+    rows = []
+    for name, shape, f2, use_bc, leaky, od, timed, view in cases:
+        c2 = shape[-1]
+        wh = whs[(c2, f2)]
+        if view:  # xp as a window of a larger (padded) buffer, as the runtime reads it
+            b, d, h, wp, _ = shape
+            big = torch.randn((b, d + 3, h + 2, wp + 5, c2), generator=gen, device=dev).to(bf16)
+            xp = big[:, 2:2 + d, 1:1 + h, 3:3 + wp]
+        else:
+            xp = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        sp = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        bias = torch.randn(f2 // 2, generator=gen, device=dev) * 0.1 if use_bc else None
+        c = torch.randn(f2, generator=gen, device=dev) * 0.3 if use_bc else None
+        got = conv3d_wino_pair_packed(xp, sp, wh, bias, c, leaky=leaky, out_dtype=od)
+        ref = conv3_packed_wino_pair(xp, sp, wh, bias, c, leaky=leaky, out_dtype=od)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if g.shape != r.shape or g.dtype != r.dtype or not torch.isfinite(g).all():
+                raise RuntimeError(f"{name}: bad pair kernel output {tuple(g.shape)} {g.dtype}")
+        errs, ok = _pair_errors(got, ref, od == f32)
+        row = dict(case=name, shape=list(shape), f2=f2, bias_c=use_bc, leaky=leaky,
+                   out=str(od).replace("torch.", ""), strided_view=view, **errs)
+        if timed:
+            bp = s2d.pack_bias(bias) if use_bc else None
+
+            def singles():
+                z = conv3d_wino_packed(xp, wh, out_dtype=od)
+                zt = conv3d_wino_packed(sp, wh, out_dtype=od)
+                y = z if bp is None else z + bp.to(z.dtype)
+                dy = zt if c is None else zt - c.to(z.dtype) * z
+                return leaky_relu_with_tangent(y, dy) if leaky else (y, dy)
+
+            row["ms"] = cuda_ms(lambda: conv3d_wino_pair_packed(xp, sp, wh, bias, c, leaky=leaky,
+                                                                out_dtype=od))
+            row["plain_ms"] = cuda_ms(lambda: conv3_packed_wino_pair(xp, sp, wh, bias, c,
+                                                                     leaky=leaky, out_dtype=od))
+            row["singles_ms"] = cuda_ms(singles)
+        log("pair_kernel", **row)
+        if not ok:
+            raise RuntimeError(f"{name}: pair kernel vs plain version out of gate: {errs}")
+        rows.append(row)
+        del xp, sp, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _rms(a, b):
+    return float((a.astype(np.float64) - b).std() / b.astype(np.float64).std())
+
+
+def _emulator(vel, seed, **kw):
+    from jax_nbody_emulator_with_dj_tpu_torch import create_emulator
     from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
+
+    return create_emulator(premodulate=True, compute_vel=vel, params=init_unet(seed, style=True),
+                           premodulate_z=0.5, premodulate_Om=0.3, device="cuda", **kw)
+
+
+def _config(n, **kw):
+    from jax_nbody_emulator_with_dj_tpu_torch import HierarchicalConfig
+
+    return HierarchicalConfig(size=(n,) * 3, output_dtype=torch.float32, **kw)
+
+
+def _check_box(out, n, vel, what):
+    outs = out if vel else (out,)
+    for o in outs:
+        if o.shape != (3, n, n, n) or not np.isfinite(o).all():
+            raise RuntimeError(f"{what}: bad output, shape {o.shape}")
+    return outs
+
+
+def phase_small_box(vel):
+    """Hierarchical runtime vs the model's own forward on a wrap-padded 16^3
+    box, float32: kernels off (only the summation order differs) and on
+    (bf16 operands, the JAX package's gates for its kernel path)."""
+    from jax_nbody_emulator_with_dj_tpu_torch.hierarchical import _wrap_pad
 
     n = 16
-    tree = init_unet(1, mid_chan=64, style=True)
     box = np.random.default_rng(1).standard_normal((3, n, n, n)).astype(np.float32)
-    kw = dict(premodulate=True, compute_vel=False, params=tree, premodulate_z=0.5,
-              premodulate_Om=0.3, device="cuda")
-    emu = create_emulator(**kw)
     xpad = _wrap_pad(torch.from_numpy(box)[None], 48)
-    ref = emu.apply(xpad, 0.5, 0.3)[0].cpu().numpy()
-    for wino, gate in ((False, 2e-4), (True, GATE_SLICE)):
-        cfg = HierarchicalConfig(size=(n,) * 3, slab=8, tile=(8, 8, 8), dtype=torch.float32,
-                                 output_dtype=torch.float32, wino=wino)
-        out = create_emulator(processor_config=cfg, **kw).process_box(box, 0.5, 0.3)
-        rel = float(np.abs(out - ref).max() / np.abs(ref).max())
-        log("small_box_vs_model", wino=wino, size=n, rel_max_err=rel, gate=gate)
-        if not (np.isfinite(out).all() and rel < gate):
-            raise RuntimeError(f"16^3 box (wino={wino}) vs model forward: rel {rel} >= {gate}")
+    ref = _emulator(vel, 1).apply(xpad, 0.5, 0.3)
+    ref = [t[0].cpu().numpy() for t in (ref if vel else (ref,))]
+    for wino in (False, True):
+        cfg = _config(n, slab=8, tile=(8, 8, 8), dtype=torch.float32, wino=wino)
+        out = _check_box(_emulator(vel, 1, processor_config=cfg).process_box(box, 0.5, 0.3),
+                         n, vel, "16^3 box")
+        errs = dict(disp_rel_max_err=_rel(out[0], ref[0]),
+                    disp_gate=GATE_SLICE if wino else 2e-4)
+        ok = errs["disp_rel_max_err"] < errs["disp_gate"]
+        if vel:
+            errs.update(vel_rms_err=_rms(out[1], ref[1]), vel_gate=GATE_VEL if wino else GATE_F32_VEL,
+                        vel_rel_max_err=_rel(out[1], ref[1]))
+            ok = ok and errs["vel_rms_err"] < errs["vel_gate"]
+        log("small_box_vs_model", vel=vel, wino=wino, size=n, **errs)
+        if not ok:
+            raise RuntimeError(f"16^3 box (vel={vel}, wino={wino}) vs model forward: {errs}")
 
 
-def phase_slice():
-    """The main path at full width: 128^3, mid_chan=64, bf16."""
-    from jax_nbody_emulator_with_dj_tpu_torch import HierarchicalConfig, create_emulator
-    from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
-    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda import conv3d_wino_packed
+def _timed_box(vel, n, wino, seed=0, runs=RUNS, **cfg_kw):
+    """Warm-up, then ``runs`` process_box calls (the first with the kernel
+    counts set to 0 just before and read just after), then one profiled call."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda as wc
 
-    n = 128
-    tree = init_unet(0, mid_chan=64, style=True)
-    box = np.random.default_rng(0).standard_normal((3, n, n, n)).astype(np.float32)
-    outs = {}
-    for wino in (None, False):  # None: the default, on for a CUDA device
-        cfg = HierarchicalConfig(size=(n,) * 3, slab=32, tile=(n,) * 3, dtype=torch.bfloat16,
-                                 output_dtype=torch.float32, wino=wino)
-        emu = create_emulator(premodulate=True, compute_vel=False, params=tree,
-                              premodulate_z=0.5, premodulate_Om=0.3,
-                              processor_config=cfg, device="cuda")
-        emu.process_box(box, 0.5, 0.3)  # warm-up (cuDNN plans, allocator)
-        torch.cuda.synchronize()
-        conv3d_wino_packed.launches = 0
+    box = np.random.default_rng(seed).standard_normal((3, n, n, n)).astype(np.float32)
+    emu = _emulator(vel, seed, processor_config=_config(n, dtype=torch.bfloat16, wino=wino,
+                                                          **cfg_kw))
+    emu.process_box(box, 0.5, 0.3)  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wc.conv3d_wino_packed.launches = wc.conv3d_wino_pair_packed.launches = 0
+    t0 = time.perf_counter()
+    out = emu.process_box(box, 0.5, 0.3)  # returns numpy: ends in a sync
+    walls = [time.perf_counter() - t0]
+    launches = dict(B1=wc.conv3d_wino_packed.launches, B2=wc.conv3d_wino_pair_packed.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(runs - 1):
         t0 = time.perf_counter()
-        out = emu.process_box(box, 0.5, 0.3)  # returns numpy: ends in a sync
-        walls = [time.perf_counter() - t0]
-        launches = conv3d_wino_packed.launches
-        for _ in range(RUNS - 1):
-            t0 = time.perf_counter()
-            emu.process_box(box, 0.5, 0.3)
-            walls.append(time.perf_counter() - t0)
-        wall = float(np.median(walls))
-        emu.process_box(box, 0.5, 0.3, profile=True)
-        phases = {k: round(v * 1e3, 3) for k, v in emu.processor.last_timings.items()}
-        if out.shape != (3, n, n, n) or not np.isfinite(out).all():
-            raise RuntimeError(f"slice output bad: shape {out.shape}")
-        outs[wino] = (out, launches, wall)
-        log("slice", wino=emu.processor.wino, size=n, mid_chan=64, dtype="bfloat16",
-            median_wall_s=wall, walls_s=walls, voxels_per_s=n**3 / wall,
-            wino_launches=launches, phase_ms=phases)
-        del emu
-        torch.cuda.empty_cache()
-    out, launches, _ = outs[None]
-    rel = float(np.abs(out - outs[False][0]).max() / np.abs(outs[False][0]).max())
-    log("slice_compare", rel_max_err=rel, gate=GATE_SLICE)
-    if launches <= 0:
-        raise RuntimeError("the main path launched the Winograd kernel 0 times")
-    if outs[False][1] != 0:
-        raise RuntimeError("wino=False still launched the kernel")
-    if not rel < GATE_SLICE:
-        raise RuntimeError(f"slice wino on vs off: rel max err {rel} >= {GATE_SLICE}")
+        emu.process_box(box, 0.5, 0.3)
+        walls.append(time.perf_counter() - t0)
+    emu.process_box(box, 0.5, 0.3, profile=True)
+    phases = {k: round(v * 1e3, 3) for k, v in emu.processor.last_timings.items()}
+    wall = float(np.median(walls))
+    log("slice", vel=vel, wino=emu.processor.wino, size=n, mid_chan=64, dtype="bfloat16",
+        median_wall_s=wall, walls_s=walls, voxels_per_s=n**3 / wall, launches=launches,
+        phase_ms=phases, max_memory_allocated=peak)
+    out = _check_box(out, n, vel, f"{n}^3 box")
+    del emu
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_slice(vel):
+    """A main path at full width: 128^3, mid_chan=64, bf16, kernels on and off.
+
+    Returns the kernel launch counts of the kernels-on run.  The disp path
+    runs B1 at every Winograd site; the vel path runs B2 at every pair site
+    (at 128^3 every packed-W output width is <= _PAIR_W_MAX, so not B1)."""
+    n = 128
+    on, launches = _timed_box(vel, n, None, slab=32, tile=(n,) * 3)  # None: on for CUDA
+    off, launches_off = _timed_box(vel, n, False, slab=32, tile=(n,) * 3)
+    errs = dict(disp_rel_max_err=_rel(on[0], off[0]), disp_gate=GATE_SLICE)
+    ok = errs["disp_rel_max_err"] < GATE_SLICE
+    if vel:
+        errs.update(vel_rms_err=_rms(on[1], off[1]), vel_gate=GATE_VEL)
+        ok = ok and errs["vel_rms_err"] < GATE_VEL
+    log("slice_compare", vel=vel, **errs)
+    kernel = "B2" if vel else "B1"
+    if launches[kernel] <= 0:
+        raise RuntimeError(f"the {'vel' if vel else 'disp'} path launched {kernel} 0 times")
+    if any(launches_off.values()):
+        raise RuntimeError(f"wino=False still launched a kernel: {launches_off}")
+    if not ok:
+        raise RuntimeError(f"slice (vel={vel}) kernels on vs off: {errs}")
     return launches
+
+
+def phase_vel_256():
+    """One 256^3 velocity box: phase 1's packed-W output width (130) is above
+    _PAIR_W_MAX, so B1 runs there (two launches per pair site); the other
+    phases run B2."""
+    _, launches = _timed_box(True, 256, None, runs=1, slab=32, tile=(128,) * 3)
+    if launches["B1"] <= 0 or launches["B2"] <= 0:
+        raise RuntimeError(f"256^3 vel box: a kernel was launched 0 times: {launches}")
 
 
 def main():
@@ -219,18 +380,33 @@ def main():
     sys.path.insert(0, str(ROOT))
     phase_build()
     rows = phase_kernel()
-    phase_small_box()
-    launches = phase_slice()
+    pair_rows = phase_pair_kernel()
+    phase_small_box(vel=False)
+    phase_small_box(vel=True)
+    launches_disp = phase_slice(vel=False)
+    launches_vel = phase_slice(vel=True)
+    phase_vel_256()
     main_row = next(r for r in rows if "ms" in r)
+    pair_row = next(r for r in pair_rows if "ms" in r)
     kernels = [{
-        "name": "conv3d_wino_packed (wino_f23)",
+        "name": "conv3d_wino_packed (B1, wino_f23)",
         "route": "cuda",
-        "source": "jax_nbody_emulator_with_dj_tpu_torch/csrc/wino_f23.cu",
-        "replaces": REPLACES,
-        "launches": launches,
+        "source": SOURCE,
+        "replaces": f"{PALLAS}:259",
+        "launches": launches_disp["B1"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+    }, {
+        "name": "conv3d_wino_pair_packed (B2, wino_f23 pair)",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": f"{PALLAS}:558",
+        "launches": launches_vel["B2"],
+        "max_abs_err": max(r["max_abs_err"] for r in pair_rows),
+        "ms": pair_row["ms"],
+        "plain_ms": pair_row["plain_ms"],
+        "singles_ms": pair_row["singles_ms"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,20 @@
-// F(2,3)^2 Winograd packed 3x3x3 conv (+bias, +LeakyReLU) for Hopper (sm_90a).
+// F(2,3)^2 Winograd packed 3x3x3 conv (+bias, +LeakyReLU) for Hopper (sm_90a),
+// and its fused factored-tangent pair.
 //
-// Replaces the Pallas TPU kernel
-//   jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py::conv3d_wino_pallas_packed
-//   (body _wino_kernel, block planner _pick_block).
-// It computes the same function: a VALID 3x3x3 conv in the W-parity packed
-// layout, x (B, D, H, WP, C2) bf16 -> y (B, D-2, H-2, WP-1, F2), Winograd
-// F(2,3) over (D, H) with the two packed-W taps summed exactly, weights
-// pre-transformed by ops/winograd.py::transform_packed_w3 as (4, 4, 2, C2, F2)
-// bf16, float32 accumulation, and an epilogue adding a float32 bias and an
-// optional LeakyReLU(0.01) before one store in bf16 or float32.
+// Replaces two Pallas TPU kernels of jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py:
+//   B1 conv3d_wino_pallas_packed      (body _wino_kernel, block planner _pick_block)
+//   B2 conv3d_wino_pallas_pair_packed (body _wino_pair_kernel)
+// B1 computes a VALID 3x3x3 conv in the W-parity packed layout, x (B, D, H,
+// WP, C2) bf16 -> y (B, D-2, H-2, WP-1, F2), Winograd F(2,3) over (D, H) with
+// the two packed-W taps summed exactly, weights pre-transformed by
+// ops/winograd.py::transform_packed_w3 as (4, 4, 2, C2, F2) bf16, float32
+// accumulation, and an epilogue adding a float32 bias and an optional
+// LeakyReLU(0.01) before one store in bf16 or float32.  B2 runs the same conv
+// on two inputs x and s of one shape (any two sets of strides) against the
+// same weights, and from the two float32 accumulators stores
+//   y = conv(x, W) + b,   dy = conv(s, W) - c (.) conv(x, W),
+// with, when leaky, dy scaled by 0.01 wherever the float32 y <= 0 and then y
+// too: the velocity layers' factored tangent (models/blocks.py::_wino_conv_pair).
 //
 // What bounds it on the H100, at C2 = F2 = 128 (every interior conv of the
 // 64-channel model).  Each output row -- one 2x2 (D, H) tile at one packed-W
@@ -31,12 +37,12 @@
 //     cell running over all WP input cells (the last one is a dummy row that
 //     is never stored), so tap a=1 of row r is the transformed input of row
 //     r+1 and no packed-W extent is padded to a block multiple;
-//   * one block = BM = 64 such rows x BN = 128 output channels (wider F2 runs
+//   * one block = 64 such rows x BN = 128 output channels (wider F2 runs
 //     more blocks along grid.y), 8 warps of 32x32 on mma.sync m16n8k16 bf16
 //     tensor-core tiles fed by ldmatrix, each holding 4 output-parity float32
 //     accumulators plus one point product;
 //   * the input channels go in groups of 32.  A group's raw input window (4 D
-//     x 4 H rows x 65 flat rows: BM plus the halo row of tap a=1) arrives by
+//     x 4 H rows x 65 flat rows: 64 plus the halo row of tap a=1) arrives by
 //     cp.async in shared memory while the previous group's products run, so
 //     each input element crosses L2 once per block; out-of-range reads are
 //     zero-filled there, so ragged D, H and W edges cost the caller nothing.
@@ -47,10 +53,20 @@
 //     point and group boundaries;
 //   * AT (entries 0, +-1) is folded into the parity accumulators as each
 //     point's partial product completes; the epilogue adds the bias, applies
-//     LeakyReLU and stores each thread's column pairs in place, masked.
-// Roundings match the Pallas kernel and the plain PyTorch version
-// (ops/winograd.py::conv3_packed_wino): the BT transform rounds to bf16 after
-// the D axis and again after the H axis; everything after runs in float32.
+//     LeakyReLU and stores each thread's column pairs in place, masked;
+//   * the pair (B2) is the same kernel with PAIR = true: a block takes 32
+//     flat rows of x and the same 32 rows of s, so it still runs 64 rows of
+//     products against each weight chunk of the ring, and the registers stay
+//     B1's.  Each warp's two m16 fragments are 16 rows of x and the same 16
+//     rows of s, so one thread holds the x and the s accumulator of every
+//     output element it stores: the c-fold runs on the float32 accumulators
+//     and the LeakyReLU mask on the float32 y, in registers.  The two inputs
+//     keep their own strides (x is often a view of a padded level buffer, s a
+//     fresh tensor).
+// Roundings match the Pallas kernels and the plain PyTorch versions
+// (ops/winograd.py::conv3_packed_wino, conv3_packed_wino_pair): the BT
+// transform rounds to bf16 after the D axis and again after the H axis;
+// everything after runs in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,24 +75,37 @@
 
 namespace {
 
-constexpr int BM = 64;          // flat output rows per block
 constexpr int BN = 128;         // output channels per block
-constexpr int ZR = BM + 1;      // transformed input rows (one halo row for tap a=1)
 constexpr int CG = 32;          // input channels per group (= weight rows per ring stage)
 constexpr int STAGES = 4;       // weight ring depth
 constexpr int WLD = BN + 8;     // ring row stride in bf16 (272 B: ldmatrix without bank conflicts)
 constexpr int ZLD = CG + 8;     // transformed-input row stride in bf16 (80 B: the same)
 constexpr int NTHREADS = 256;   // 8 warps: 2 along M x 4 along N, 32x32 each
-constexpr int RAW_SEGS = 16 * ZR * (CG / 8);                       // 16-byte pieces of a window
-constexpr int RAW_STEPS = (RAW_SEGS + NTHREADS - 1) / NTHREADS;    // ring steps that carry them
-constexpr int CHUNKS_PER_GROUP = 16 * 2;                            // points x packed-W taps
-static_assert(RAW_STEPS + STAGES <= CHUNKS_PER_GROUP, "window must land before its group");
-
+constexpr int CHUNKS_PER_GROUP = 16 * 2;  // points x packed-W taps
 constexpr size_t RING_BYTES = (size_t)STAGES * CG * WLD * 2;
-constexpr size_t ZS_BYTES = (size_t)16 * ZR * ZLD * 2;
-constexpr size_t RAW_BYTES = (size_t)RAW_SEGS * 16;
-constexpr size_t ROWS_BYTES = (size_t)ZR * 12;
-constexpr size_t SMEM_BYTES = RING_BYTES + ZS_BYTES + RAW_BYTES + ROWS_BYTES;
+
+// Block geometry.  B1: 64 flat output rows of one input.  B2 (PAIR): 32 flat
+// rows of x and the same 32 of s.  Either way 64 rows of products.
+template <bool PAIR>
+struct Geo {
+  static constexpr int BR = PAIR ? 32 : 64;         // flat output rows per block
+  static constexpr int ZRO = BR + 1;                // transformed rows per input (+ the halo row of tap a=1)
+  static constexpr int ZR = (PAIR ? 2 : 1) * ZRO;   // transformed rows of all inputs
+  static constexpr int RAW_SEGS = 16 * ZR * (CG / 8);                     // 16-byte pieces of a window
+  static constexpr int RAW_STEPS = (RAW_SEGS + NTHREADS - 1) / NTHREADS;  // ring steps that carry them
+  static_assert(RAW_STEPS + STAGES <= CHUNKS_PER_GROUP, "window must land before its group");
+  static constexpr size_t ZS_BYTES = (size_t)16 * ZR * ZLD * 2;
+  static constexpr size_t RAW_BYTES = (size_t)RAW_SEGS * 16;
+  static constexpr size_t ROWS_BYTES = (size_t)ZR * 12;
+  static constexpr size_t SMEM_BYTES = RING_BYTES + ZS_BYTES + RAW_BYTES + ROWS_BYTES;
+  // First transformed row of warp-row wm's m16 fragment mt.  B1: the warp's
+  // 32 rows.  PAIR: fragment 0 is 16 rows of x, fragment 1 the same rows of s.
+  // For the fragments that are stored, minus the input offset, also the
+  // block-relative flat output row.
+  __device__ static constexpr int frag_row(int wm, int mt) {
+    return PAIR ? mt * ZRO + wm * 16 : wm * 32 + mt * 16;
+  }
+};
 
 // BT rows of F(2,3): z_k = x[ra(k)] + x[rb(k)] for k == 1, x[ra(k)] - x[rb(k)]
 // otherwise.  Functions, not tables, so unrolled loops fold them into constants.
@@ -89,11 +118,12 @@ __device__ __forceinline__ float at(int p, int k) {
 }
 
 struct Args {
-  const __nv_bfloat16* x;
+  const __nv_bfloat16* x[2];  // x, and s for the pair
   const __nv_bfloat16* wh;
   const float* bias;
-  void* y;
-  long long sB, sD, sH, sW;  // element strides of x; channels are contiguous
+  const float* c;             // the pair's fold vector
+  void* y[2];                 // y, and dy for the pair
+  long long sB[2], sD[2], sH[2], sW[2];  // element strides of x and s; channels are contiguous
   int B, D, H, WP, C2, F2;
   int OD, OH, OW;
   int ND, NH;  // Winograd tiles along D and H
@@ -176,51 +206,72 @@ __device__ __forceinline__ void load_chunk(const Args& a, int j, int n0, __nv_bf
 }
 
 // Piece `step` of channel group g's raw window: raw[(dr*4 + hr)*ZR + row][CG].
+// Rows [0, ZRO) read x, rows [ZRO, 2 ZRO) (PAIR) read s.
+template <bool PAIR>
 __device__ __forceinline__ void load_raw(const Args& a, int g, int step, uint4* raw,
                                          const long long* row_off, const int* row_lim,
                                          int tid) {
+  using G = Geo<PAIR>;
   const int seg = step * NTHREADS + tid;
-  if (seg >= RAW_SEGS) return;
+  if (seg >= G::RAW_SEGS) return;
   const int q = seg % (CG / 8);
-  const int row = (seg / (CG / 8)) % ZR;
-  const int dh = seg / (CG / 8 * ZR);
+  const int row = (seg / (CG / 8)) % G::ZR;
+  const int dh = seg / (CG / 8 * G::ZR);
   const int dr = dh >> 2, hr = dh & 3;
   const int lim = row_lim[row];
   const bool ok = dr < (lim >> 4) && hr < (lim & 15);
-  const __nv_bfloat16* src =
-      a.x + row_off[row] + dr * a.sD + hr * a.sH + g * CG + q * 8;
-  cp_async16(raw + seg, ok ? src : a.x, ok);
+  const bool s_row = PAIR && row >= G::ZRO;
+  const __nv_bfloat16* src = (s_row ? a.x[1] : a.x[0]) + row_off[row] +
+                             dr * (s_row ? a.sD[1] : a.sD[0]) +
+                             hr * (s_row ? a.sH[1] : a.sH[0]) + g * CG + q * 8;
+  cp_async16(raw + seg, ok ? src : a.x[0], ok);
 }
 
-template <bool LEAKY, bool OUT_F32>
+template <bool OUT_F32>
+__device__ __forceinline__ void store2(void* base, size_t i, float v0, float v1) {
+  if (OUT_F32)
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(base) + i) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(base) + i) =
+        __floats2bfloat162_rn(v0, v1);
+}
+
+template <bool LEAKY, bool OUT_F32, bool PAIR>
 __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
+  using G = Geo<PAIR>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(smem_raw + RING_BYTES);
-  uint4* raw = reinterpret_cast<uint4*>(smem_raw + RING_BYTES + ZS_BYTES);
-  long long* row_off = reinterpret_cast<long long*>(smem_raw + RING_BYTES + ZS_BYTES + RAW_BYTES);
-  int* row_lim = reinterpret_cast<int*>(row_off + ZR);
+  uint4* raw = reinterpret_cast<uint4*>(smem_raw + RING_BYTES + G::ZS_BYTES);
+  long long* row_off =
+      reinterpret_cast<long long*>(smem_raw + RING_BYTES + G::ZS_BYTES + G::RAW_BYTES);
+  int* row_lim = reinterpret_cast<int*>(row_off + G::ZR);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int wm = warp >> 2;  // warp's 32-row slice of BM
+  const int wm = warp >> 2;  // warp's slice of the block's rows
   const int wn = warp & 3;   // warp's 32-column slice of BN
-  const int r0 = blockIdx.x * BM;
+  const int r0 = blockIdx.x * G::BR;
   const int n0 = blockIdx.y * BN;
   const int ngroups = a.C2 / CG;
   const int nchunks = ngroups * CHUNKS_PER_GROUP;
 
-  // Each flat row's input offset and how many of its 4 D and 4 H rows exist.
-  for (int row = tid; row < ZR; row += NTHREADS) {
+  // Each transformed row's input offset and how many of its 4 D and 4 H rows exist.
+  for (int row = tid; row < G::ZR; row += NTHREADS) {
+    const bool s_row = PAIR && row >= G::ZRO;
     int b, dt, ht, w;
-    const bool ok = decode(a, r0 + row, b, dt, ht, w);
-    row_off[row] = ok ? b * a.sB + 2 * dt * a.sD + 2 * ht * a.sH + w * a.sW : 0;
+    const bool ok = decode(a, r0 + row - (s_row ? G::ZRO : 0), b, dt, ht, w);
+    // (constant indices: a dynamically indexed kernel parameter can land in local memory)
+    const long long sB = s_row ? a.sB[1] : a.sB[0], sD = s_row ? a.sD[1] : a.sD[0];
+    const long long sH = s_row ? a.sH[1] : a.sH[0], sW = s_row ? a.sW[1] : a.sW[0];
+    row_off[row] = ok ? b * sB + 2 * dt * sD + 2 * ht * sH + w * sW : 0;
     row_lim[row] = ok ? (min(a.D - 2 * dt, 4) << 4) | min(a.H - 2 * ht, 4) : 0;
   }
   __syncthreads();
 
-  for (int step = 0; step < RAW_STEPS; ++step) load_raw(a, 0, step, raw, row_off, row_lim, tid);
+  for (int step = 0; step < G::RAW_STEPS; ++step)
+    load_raw<PAIR>(a, 0, step, raw, row_off, row_lim, tid);
   cp_async_commit();
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -245,18 +296,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
     cp_async_wait<STAGES - 1>();
     __syncthreads();
     // ---- BT over D (row u) then over H (rows v), rounding after each axis
-    for (int item = tid; item < 4 * ZR * (CG / 8); item += NTHREADS) {
+    for (int item = tid; item < 4 * G::ZR * (CG / 8); item += NTHREADS) {
       const int q = item % (CG / 8);
-      const int row = (item / (CG / 8)) % ZR;
-      const int u = item / (CG / 8 * ZR);
+      const int row = (item / (CG / 8)) % G::ZR;
+      const int u = item / (CG / 8 * G::ZR);
       uint4 xv[4];
 #pragma unroll
       for (int hr = 0; hr < 4; ++hr)
-        xv[hr] = pm8(raw[((ra(u) * 4 + hr) * ZR + row) * (CG / 8) + q],
-                     raw[((rb(u) * 4 + hr) * ZR + row) * (CG / 8) + q], u == 1);
+        xv[hr] = pm8(raw[((ra(u) * 4 + hr) * G::ZR + row) * (CG / 8) + q],
+                     raw[((rb(u) * 4 + hr) * G::ZR + row) * (CG / 8) + q], u == 1);
 #pragma unroll
       for (int v = 0; v < 4; ++v)
-        *reinterpret_cast<uint4*>(zs + ((u * 4 + v) * ZR + row) * ZLD + q * 8) =
+        *reinterpret_cast<uint4*>(zs + ((u * 4 + v) * G::ZR + row) * ZLD + q * 8) =
             pm8(xv[ra(v)], xv[rb(v)], v == 1);
     }
     // (the first ring step's barrier makes the points visible and frees the window)
@@ -270,15 +321,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
 
-      const __nv_bfloat16* zp = zs + pt * ZR * ZLD;
+      const __nv_bfloat16* zp = zs + pt * G::ZR * ZLD;
 #pragma unroll
       for (int tap = 0; tap < 2; ++tap, ++j) {
         cp_async_wait<STAGES - 2>();  // chunk j has landed (this thread's part)
         __syncthreads();              // ... everyone's part; stage j-1 is free
         if (j + STAGES - 1 < nchunks) load_chunk(a, j + STAGES - 1, n0, ring, tid);
         const int step = j % CHUNKS_PER_GROUP;
-        if (g + 1 < ngroups && step < RAW_STEPS)
-          load_raw(a, g + 1, step, raw, row_off, row_lim, tid);
+        if (g + 1 < ngroups && step < G::RAW_STEPS)
+          load_raw<PAIR>(a, g + 1, step, raw, row_off, row_lim, tid);
         cp_async_commit();
 
         const __nv_bfloat16* wst = ring + (j % STAGES) * CG * WLD;
@@ -288,7 +339,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
             ldsm_x4(af[mt],
-                    zp + (wm * 32 + mt * 16 + (lane & 15) + tap) * ZLD + kk + (lane >> 4) * 8);
+                    zp + (G::frag_row(wm, mt) + (lane & 15) + tap) * ZLD + kk + (lane >> 4) * 8);
 #pragma unroll
           for (int np = 0; np < 2; ++np) {
             uint32_t t4[4];
@@ -323,15 +374,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
   }
   cp_async_wait<0>();
 
-  // ---- epilogue: bias, LeakyReLU, masked stores straight from the fragments
+  // ---- epilogue: bias (and the pair's c-fold), LeakyReLU, masked stores
+  // straight from the fragments.  PAIR stores fragment 0 (x) and reads the
+  // same element's s accumulator from fragment 1.
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < (PAIR ? 1 : 2); ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       int b, dt, ht, w;
-      const bool ok = decode(a, r0 + wm * 32 + mt * 16 + half * 8 + g8, b, dt, ht, w);
+      const bool ok = decode(a, r0 + G::frag_row(wm, mt) + half * 8 + g8, b, dt, ht, w);
       if (!ok || w >= a.OW) continue;  // past the end, or the dummy last cell
 #pragma unroll
       for (int pq = 0; pq < 4; ++pq) {
@@ -343,54 +396,47 @@ __global__ void __launch_bounds__(NTHREADS, 1) wino_f23_kernel(Args a) {
         for (int nt = 0; nt < 4; ++nt) {
           const int col = n0 + wn * 32 + nt * 8 + 2 * t4;
           if (col >= a.F2) continue;
-          float v0 = acc[pq][mt][nt][2 * half] + a.bias[col];
-          float v1 = acc[pq][mt][nt][2 * half + 1] + a.bias[col + 1];
+          const float x0 = acc[pq][mt][nt][2 * half];
+          const float x1 = acc[pq][mt][nt][2 * half + 1];
+          float v0 = x0 + a.bias[col];
+          float v1 = x1 + a.bias[col + 1];
+          const size_t yi = rowi * a.F2 + col;
+          if (PAIR) {
+            // dy = conv(s) - c * conv(x), two roundings as the plain version
+            float d0 = __fsub_rn(acc[pq][1][nt][2 * half], __fmul_rn(a.c[col], x0));
+            float d1 = __fsub_rn(acc[pq][1][nt][2 * half + 1], __fmul_rn(a.c[col + 1], x1));
+            if (LEAKY) {
+              d0 = v0 > 0.f ? d0 : 0.01f * d0;
+              d1 = v1 > 0.f ? d1 : 0.01f * d1;
+            }
+            store2<OUT_F32>(a.y[1], yi, d0, d1);
+          }
           if (LEAKY) {
             v0 = v0 > 0.f ? v0 : 0.01f * v0;
             v1 = v1 > 0.f ? v1 : 0.01f * v1;
           }
-          const size_t yi = rowi * a.F2 + col;
-          if (OUT_F32)
-            *reinterpret_cast<float2*>(reinterpret_cast<float*>(a.y) + yi) = make_float2(v0, v1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(a.y) + yi) =
-                __floats2bfloat162_rn(v0, v1);
+          store2<OUT_F32>(a.y[0], yi, v0, v1);
         }
       }
     }
   }
 }
 
-template <bool LEAKY, bool OUT_F32>
+template <bool LEAKY, bool OUT_F32, bool PAIR>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = wino_f23_kernel<LEAKY, OUT_F32>;
+  using G = Geo<PAIR>;
+  auto kern = wino_f23_kernel<LEAKY, OUT_F32, PAIR>;
   cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.M + BM - 1) / BM, (a.F2 + BN - 1) / BN);
-  kern<<<grid, NTHREADS, SMEM_BYTES, stream>>>(a);
+  dim3 grid((a.M + G::BR - 1) / G::BR, (a.F2 + BN - 1) / BN);
+  kern<<<grid, NTHREADS, G::SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Shapes and strides are checked by
-// the Python wrapper (ops/winograd_cuda.py: C2 % 32 == 0, F2 % 8 == 0, strides
-// of 8 elements); returns the CUDA error code of the launch (0 = success).
-extern "C" int wino_f23_packed(const void* x, const void* wh, const void* bias,
-                               void* y, long long sB, long long sD,
-                               long long sH, long long sW, int B, int D, int H,
-                               int WP, int C2, int F2, int leaky, int out_f32,
-                               void* stream) {
-  Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.wh = static_cast<const __nv_bfloat16*>(wh);
-  a.bias = static_cast<const float*>(bias);
-  a.y = y;
-  a.sB = sB;
-  a.sD = sD;
-  a.sH = sH;
-  a.sW = sW;
+template <bool PAIR>
+int dispatch(Args& a, int B, int D, int H, int WP, int C2, int F2, int leaky, int out_f32,
+             void* stream) {
   a.B = B;
   a.D = D;
   a.H = H;
@@ -406,8 +452,58 @@ extern "C" int wino_f23_packed(const void* x, const void* wh, const void* bias,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (leaky)
-    e = out_f32 ? launch<true, true>(a, st) : launch<true, false>(a, st);
+    e = out_f32 ? launch<true, true, PAIR>(a, st) : launch<true, false, PAIR>(a, st);
   else
-    e = out_f32 ? launch<false, true>(a, st) : launch<false, false>(a, st);
+    e = out_f32 ? launch<false, true, PAIR>(a, st) : launch<false, false, PAIR>(a, st);
   return (int)e;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  Shapes and strides are checked by
+// the Python wrappers (ops/winograd_cuda.py: C2 % 32 == 0, F2 % 8 == 0, strides
+// of 8 elements); each returns the CUDA error code of the launch (0 = success).
+extern "C" int wino_f23_packed(const void* x, const void* wh, const void* bias,
+                               void* y, long long sB, long long sD,
+                               long long sH, long long sW, int B, int D, int H,
+                               int WP, int C2, int F2, int leaky, int out_f32,
+                               void* stream) {
+  Args a = {};
+  a.x[0] = a.x[1] = static_cast<const __nv_bfloat16*>(x);
+  a.wh = static_cast<const __nv_bfloat16*>(wh);
+  a.bias = static_cast<const float*>(bias);
+  a.y[0] = a.y[1] = y;
+  a.sB[0] = a.sB[1] = sB;
+  a.sD[0] = a.sD[1] = sD;
+  a.sH[0] = a.sH[1] = sH;
+  a.sW[0] = a.sW[1] = sW;
+  return dispatch<false>(a, B, D, H, WP, C2, F2, leaky, out_f32, stream);
+}
+
+// The pair: x and s of one shape, each with its own strides; bias and c are
+// (F2,) float32 (zeros for the raw per-part form); y and dy contiguous.
+extern "C" int wino_f23_pair_packed(const void* x, const void* s, const void* wh,
+                                    const void* bias, const void* c, void* y, void* dy,
+                                    long long sxB, long long sxD, long long sxH,
+                                    long long sxW, long long ssB, long long ssD,
+                                    long long ssH, long long ssW, int B, int D, int H,
+                                    int WP, int C2, int F2, int leaky, int out_f32,
+                                    void* stream) {
+  Args a = {};
+  a.x[0] = static_cast<const __nv_bfloat16*>(x);
+  a.x[1] = static_cast<const __nv_bfloat16*>(s);
+  a.wh = static_cast<const __nv_bfloat16*>(wh);
+  a.bias = static_cast<const float*>(bias);
+  a.c = static_cast<const float*>(c);
+  a.y[0] = y;
+  a.y[1] = dy;
+  a.sB[0] = sxB;
+  a.sD[0] = sxD;
+  a.sH[0] = sxH;
+  a.sW[0] = sxW;
+  a.sB[1] = ssB;
+  a.sD[1] = ssD;
+  a.sH[1] = ssH;
+  a.sW[1] = ssW;
+  return dispatch<true>(a, B, D, H, WP, C2, F2, leaky, out_f32, stream);
 }

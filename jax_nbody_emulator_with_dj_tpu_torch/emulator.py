@@ -1,10 +1,10 @@
 """User-facing factory and bundle: create_emulator / NBodyEmulator.
 
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/emulator.py``.  Ported so
-far: the premodulated displacement model (``premodulate=True,
-compute_vel=False``), with the style fold done at creation, and the
-hierarchical runtime as its processor.  The other combinations raise
-``NotImplementedError`` naming their ROADMAP item.
+far: the premodulated displacement and displacement+velocity models
+(``premodulate=True``), with the style fold done at creation, and the
+hierarchical runtime as their processor.  The style (non-premodulated)
+models raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from dataclasses import dataclass
 
 import torch
 
-from .cosmology import growth_factor
+from .cosmology import growth_factor, vel_norm
 from .hierarchical import HierarchicalConfig, HierarchicalProcessor
-from .models.cores import NBodyEmulatorCore
+from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
 from .ops.style import premodulate_layer, style_vector
 
 
@@ -23,18 +23,27 @@ from .ops.style import premodulate_layer, style_vector
 class NBodyEmulator:
     """Bundle of model + params + (optional) hierarchical processor."""
 
-    model: NBodyEmulatorCore
+    model: NBodyEmulatorCore | NBodyEmulatorVelCore
     params: dict
     processor: HierarchicalProcessor | None
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
 
+    @property
+    def compute_vel(self) -> bool:
+        return isinstance(self.model, NBodyEmulatorVelCore)
+
     def apply(self, x, z, Om):
-        """Run the model directly on a (padded) (B, C, D, H, W) or (C, D, H, W) tensor."""
+        """Run the model directly on a (padded) (B, C, D, H, W) or (C, D, H, W)
+        tensor; velocity models return ``(disp, vel)``."""
         Dz = torch.as_tensor(growth_factor(z, Om), dtype=torch.float32)
         params = _tree_to(self.params, self.device)
+        x = x.to(self.device, self.dtype)
         with torch.no_grad():
-            return self.model.apply(params, x.to(self.device, self.dtype), Dz)
+            if self.compute_vel:
+                vf = torch.as_tensor(vel_norm(z, Om), dtype=torch.float32)
+                return self.model.apply(params, x, Dz, vf)
+            return self.model.apply(params, x, Dz)
 
     def process_box(self, input_box, z, Om, **kw):
         if self.processor is None:
@@ -50,11 +59,20 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _modulate_tree(params: dict, s, *, eps: float) -> dict:
+def _is_first_layer(block_name: str, layer_name: str) -> bool:
+    """Layers whose input is the raw (Dz-linear) network input: conv_l00's
+    conv_0 and skip."""
+    return block_name == "conv_l00" and layer_name in ("conv_0", "skip")
+
+
+def _modulate_tree(params: dict, s, *, vel: bool, eps: float, factors: bool = False) -> dict:
     out = {"params": {}}
     for block_name, block in params["params"].items():
         out["params"][block_name] = {
-            layer_name: premodulate_layer(layer, s, eps=eps) if "style_weight" in layer else layer
+            layer_name: premodulate_layer(
+                layer, s, vel=vel, first_layer=vel and _is_first_layer(block_name, layer_name),
+                eps=eps, factors=factors and vel,
+            ) if "style_weight" in layer else layer
             for layer_name, layer in block.items()
         }
     return out
@@ -64,7 +82,14 @@ def modulate_emulator_parameters(params: dict, z, Om, eps: float = 1e-8) -> dict
     """Fold style into fixed-cosmology weights (displacement-only models)."""
     Dz = growth_factor(z, Om)
     s = style_vector(float(Om), float(Dz))[0]
-    return _modulate_tree(params, s, eps=eps)
+    return _modulate_tree(params, s, vel=False, eps=eps)
+
+
+def modulate_emulator_parameters_vel(params: dict, z, Om, eps: float = 1e-8) -> dict:
+    """Fold style + analytic d/dDz tangents (displacement+velocity models)."""
+    Dz = growth_factor(z, Om)
+    s = style_vector(float(Om), float(Dz))[0]
+    return _modulate_tree(params, s, vel=True, eps=eps)
 
 
 def create_emulator(
@@ -83,7 +108,8 @@ def create_emulator(
     Args:
         premodulate: fold style into weights at creation (fixed cosmology).
             Only ``True`` is ported.
-        compute_vel: the model also returns velocities.  Only ``False`` is ported.
+        compute_vel: the model also returns velocities (``process_box`` and
+            ``apply`` then return ``(disp, vel)``).
         params: parameter tree (dicts of torch tensors, DHWIO kernels;
             ``utils.params.params_from_jax`` converts a JAX tree,
             ``utils.params.load_params_npz`` reads a saved one).  Required:
@@ -98,9 +124,7 @@ def create_emulator(
     """
     if not premodulate:
         raise NotImplementedError("style (non-premodulated) cores are not ported: ROADMAP item A3")
-    if compute_vel:
-        raise NotImplementedError("velocity models are not ported: ROADMAP item A2")
-    model = NBodyEmulatorCore(**model_kwargs)
+    model = (NBodyEmulatorVelCore if compute_vel else NBodyEmulatorCore)(**model_kwargs)
     device = torch.device(device if device is not None else "cpu")
 
     if params is None:
@@ -113,7 +137,8 @@ def create_emulator(
     if has_style:
         if premodulate_z is None or premodulate_Om is None:
             raise ValueError("premodulate_z and premodulate_Om are required when premodulate=True")
-        params = modulate_emulator_parameters(params, premodulate_z, premodulate_Om, eps=model.eps)
+        fold = modulate_emulator_parameters_vel if compute_vel else modulate_emulator_parameters
+        params = fold(params, premodulate_z, premodulate_Om, eps=model.eps)
 
     processor = None
     if processor_config is not None:

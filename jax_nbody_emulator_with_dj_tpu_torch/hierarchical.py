@@ -1,9 +1,10 @@
 """Hierarchical big-box runtime: overlap-minimal periodic U-Net evaluation.
 
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/hierarchical.py``, for the
-premodulated displacement model on the packed path.  The phases, tile
-anchors and margins are the JAX package's, which is what makes the result
-equal (up to float reordering) to the subbox decomposition:
+premodulated displacement and displacement+velocity models on the packed
+path.  The phases, tile anchors and margins are the JAX package's, which is
+what makes the result equal (up to float reordering) to the subbox
+decomposition:
 
   Phase 1  (level-0 encoder on D[/H] slabs): conv_l00/conv_l01/down_l0 on
            slabs of the wrap-padded box, written into the level-1 buffer h1.
@@ -15,8 +16,14 @@ equal (up to float reordering) to the subbox decomposition:
 
 Activations are W-packed, (1, D, H, W/2, 2C) channels-last (``ops/s2d.py``);
 every interior 3x3x3 conv whose packed operands are >= 128 channels wide
-runs the F(2,3)^2 Winograd kernel (``ops/winograd_cuda.py``) when
+runs the F(2,3)^2 Winograd kernels (``ops/winograd_cuda.py``: B1, and for
+the velocity model's factored-tangent pairs B2) when
 ``HierarchicalConfig.wino`` is on, which it is by default on a CUDA device.
+
+A velocity model threads a (primal, tangent) pair through every phase, so
+each level has two buffers, and phase 3 writes the displacement and the
+velocity.  The runtime carries activations as tuples of one tensor (disp)
+or two (disp+vel) throughout.
 
 Where the port updates in place: the level buffers are allocated once per
 ``process_box`` call (``torch.zeros``); each tile's result is copied into
@@ -35,18 +42,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .cosmology import growth_factor
+from .cosmology import growth_factor, vel_norm
 from .models.blocks import (
     _center_crop,
     apply_resample_block_packed,
+    apply_resample_block_vel_packed,
     apply_resnet_block_packed,
     apply_resnet_block_packed_cat,
+    apply_resnet_block_vel_packed,
+    apply_resnet_block_vel_packed_cat,
     apply_resnet_entry_packed,
+    apply_resnet_entry_vel_packed,
     pack_resample_params,
     pack_resnet_entry_params,
     pack_resnet_params,
 )
-from .models.cores import NBodyEmulatorCore
+from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
 from .ops import s2d
 
 
@@ -104,7 +115,7 @@ class HierarchicalConfig:
 
 
 class HierarchicalProcessor:
-    """Overlap-minimal runtime for the 3-level premodulated displacement model."""
+    """Overlap-minimal runtime for the 3-level premodulated models (disp, disp+vel)."""
 
     # Level-1 buffer margins (level-1 voxels; W margins are halved in cells).
     PHASE2A_MARGIN = 2
@@ -113,10 +124,8 @@ class HierarchicalProcessor:
     PHASE3_R1_MARGIN_PACKED = 4
 
     def __init__(self, model, params, config: HierarchicalConfig, device=None):
-        if not isinstance(model, NBodyEmulatorCore):
-            raise NotImplementedError(
-                "only the premodulated displacement core is ported: ROADMAP items A2/A3"
-            )
+        if not isinstance(model, NBodyEmulatorCore):  # NBodyEmulatorVelCore is one too
+            raise NotImplementedError("only the premodulated cores are ported: ROADMAP item A3")
         if model.levels != 3:
             raise ValueError("hierarchical runtime implements the 3-level topology")
         if not config.packed:
@@ -124,6 +133,7 @@ class HierarchicalProcessor:
         if config.y0_cache:
             raise NotImplementedError("y0_cache is not ported: ROADMAP item A4")
         self.model = model
+        self.compute_vel = isinstance(model, NBodyEmulatorVelCore)
         self.config = config
         self.device = torch.device(device if device is not None else "cpu")
         self.wino = config.wino if config.wino is not None else self.device.type == "cuda"
@@ -132,7 +142,7 @@ class HierarchicalProcessor:
 
     def _pack_params(self, p):
         """Pack the interior layers' weights once, in the compute dtype, on the device."""
-        kw = dict(dtype=self.config.dtype, device=self.device)
+        kw = dict(vel=self.compute_vel, dtype=self.config.dtype, device=self.device)
         wino = self.wino
         pp = {
             "conv_l00": pack_resnet_entry_params(p["conv_l00"], "CACA", wino=wino, **kw),
@@ -147,6 +157,35 @@ class HierarchicalProcessor:
         for name in ("up_r2", "up_r1", "up_r0"):
             pp[name] = pack_resample_params(p[name], "UA", **kw)
         return pp
+
+    # ------------------------------------------------------------------
+    # Blocks on activation tuples: (h,) for disp, (h, dh) for disp+vel
+    # ------------------------------------------------------------------
+
+    def _resnet(self, name, x, seq="CACA"):
+        p = self._exec[name]
+        if self.compute_vel:
+            return apply_resnet_block_vel_packed(p, *x, seq)
+        return (apply_resnet_block_packed(p, x[0], seq),)
+
+    def _resnet_cat(self, name, a, b):
+        """Decoder block on the implicit concat (a, b)."""
+        p = self._exec[name]
+        if self.compute_vel:
+            return apply_resnet_block_vel_packed_cat(p, (a[0], b[0]), (a[1], b[1]), "CACA")
+        return (apply_resnet_block_packed_cat(p, (a[0], b[0]), "CACA"),)
+
+    def _resample(self, name, x, seq):
+        p = self._exec[name]
+        if self.compute_vel:
+            return apply_resample_block_vel_packed(p, *x, seq)
+        return (apply_resample_block_packed(p, x[0], seq),)
+
+    def _entry(self, x):
+        p = self._exec["conv_l00"]
+        if self.compute_vel:
+            return apply_resnet_entry_vel_packed(p, x)
+        return (apply_resnet_entry_packed(p, x),)
 
     def memory_audit(self, *args, **kwargs):
         raise NotImplementedError("memory_audit is not ported: ROADMAP item A7")
@@ -183,9 +222,19 @@ class HierarchicalProcessor:
             2 * self.model.mid_chan,
         )
 
-    def _new_buf(self, margin, level: int = 1):
-        return torch.zeros(self._buf_shape(margin, level), dtype=self.config.dtype,
-                           device=self.device)
+    def _new_bufs(self, margin, level: int = 1):
+        """The level buffers: one for disp, two (primal, tangent) for disp+vel."""
+        return tuple(
+            torch.zeros(self._buf_shape(margin, level), dtype=self.config.dtype,
+                        device=self.device)
+            for _ in range(2 if self.compute_vel else 1)
+        )
+
+    @classmethod
+    def _ghost_fill_all(cls, bufs, margins):
+        for buf in bufs:
+            cls._ghost_fill(buf, margins)
+        return bufs
 
     @staticmethod
     def _ghost_fill(buf, margins):
@@ -221,12 +270,13 @@ class HierarchicalProcessor:
         return buf[:, starts[0]:starts[0] + sizes[0], starts[1]:starts[1] + sizes[1],
                    starts[2]:starts[2] + sizes[2]]
 
-    def _tile_window(self, buf, start, halo, out_margin):
-        """The (tile1 + 2*halo) window of a buffer padded by ``halo``, and the
-        write offset of its tile in a buffer padded by ``out_margin``."""
+    def _tile_window(self, bufs, start, halo, out_margin):
+        """The (tile1 + 2*halo) windows of buffers padded by ``halo``, and the
+        write offset of their tile in buffers padded by ``out_margin``."""
         m1 = self.config.tile1
         e = m1 + 2 * halo
-        win = self._slice(buf, (start[0], start[1], start[2] // 2), (e, e, e // 2))
+        win = tuple(self._slice(b, (start[0], start[1], start[2] // 2), (e, e, e // 2))
+                    for b in bufs)
         s5 = (
             out_margin[0] + start[0],
             out_margin[1] + start[1],
@@ -234,17 +284,18 @@ class HierarchicalProcessor:
         )
         return win, s5
 
-    def _write(self, buf, starts, out):
-        self._slice(buf, starts, out.shape[1:4]).copy_(out)
+    def _write(self, bufs, starts, outs):
+        for buf, out in zip(bufs, outs):
+            self._slice(buf, starts, out.shape[1:4]).copy_(out)
 
     # ------------------------------------------------------------------
     # Phases
     # ------------------------------------------------------------------
 
     # Each phase: ``_phase*_all`` loops over the slabs or tiles and then fills
-    # the ghosts of its output buffer; ``_phase*_step`` reads one window (a
-    # view), runs ``_phase*_slab``/``_phase*_tile`` and copies the result
-    # into its slice of the output buffer.
+    # the ghosts of its output buffers; ``_phase*_step`` reads one window (a
+    # view of each buffer), runs ``_phase*_slab``/``_phase*_tile`` and copies
+    # the results into their slices of the output buffers.
 
     def _phase1_all(self, boxp, h1):
         cfg = self.config
@@ -252,7 +303,7 @@ class HierarchicalProcessor:
         for d0 in range(0, cfg.size[0], cfg.slab):
             for h0 in range(0, cfg.size[1], sh):
                 self._phase1_step(boxp, d0, h0, h1)
-        return self._ghost_fill(h1, self._h1_margin())
+        return self._ghost_fill_all(h1, self._h1_margin())
 
     def _phase1_step(self, boxp, d0, h0, h1):
         cfg = self.config
@@ -263,10 +314,8 @@ class HierarchicalProcessor:
 
     def _phase1_slab(self, slab):
         """(1, C, S+8, H+8, W+8) scaled input -> down_l0 rows (1, S/2, H/2, W/4, 2C)."""
-        p = self._exec
-        h = apply_resnet_entry_packed(p["conv_l00"], slab)
-        h = apply_resnet_block_packed(p["conv_l01"], h, "CACA")
-        return apply_resample_block_packed(p["down_l0"], h, "DA")
+        h = self._resnet("conv_l01", self._entry(slab))
+        return self._resample("down_l0", h, "DA")
 
     def _level1_anchors(self):
         return self._tile_anchors([(s // 2, self.config.tile1) for s in self.config.size])
@@ -274,7 +323,7 @@ class HierarchicalProcessor:
     def _phase2a_all(self, h1, y1):
         for start in self._level1_anchors():
             self._phase2a_step(h1, start, y1)
-        return self._ghost_fill(y1, self._y1_margin())
+        return self._ghost_fill_all(y1, self._y1_margin())
 
     def _phase2a_step(self, h1, start, y1):
         t, s5 = self._tile_window(h1, start, self.PHASE2A_MARGIN, self._y1_margin())
@@ -282,12 +331,12 @@ class HierarchicalProcessor:
 
     def _phase2a_tile(self, t):
         """conv_l1 on a (1, M+4, M+4, (M+4)/2, 2C) window -> the exact M tile."""
-        return apply_resnet_block_packed(self._exec["conv_l1"], t, "CACA")
+        return self._resnet("conv_l1", t)
 
     def _phase2b_all(self, y1, y2):
         for start in self._level1_anchors():
             self._phase2b_step(y1, start, y2)
-        return self._ghost_fill(y2, self._y2_margin())
+        return self._ghost_fill_all(y2, self._y2_margin())
 
     def _phase2b_step(self, y1, start, y2):
         t, _ = self._tile_window(y1, start, self.PHASE2B_MARGIN, (0, 0, 0))
@@ -298,20 +347,19 @@ class HierarchicalProcessor:
     def _phase2b_tile(self, t):
         """down_l1 + conv_l2 on a (1, M+8, M+8, (M+8)/2, 2C) y1 window -> the
         exact level-2 tile (1, M/2, M/2, M/4, 2C)."""
-        p = self._exec
-        h = apply_resample_block_packed(p["down_l1"], t, "DA")
-        return apply_resnet_block_packed(p["conv_l2"], h, "CACA")
+        return self._resnet("conv_l2", self._resample("down_l1", t, "DA"))
 
     def _phase2c_all(self, y1, y2, r1):
         for start in self._level1_anchors():
             self._phase2c_step(y1, y2, start, r1)
-        return self._ghost_fill(r1, self._r1_margin())
+        return self._ghost_fill_all(r1, self._r1_margin())
 
     def _phase2c_step(self, y1, y2, start, r1):
         # y2 window: level-2 extent M/2 + 2*PHASE2C_MARGIN at the plain
         # level-2 anchor (the buffer carries exactly that margin).
         e2 = self.config.tile1 // 2 + 2 * self.PHASE2C_MARGIN
-        t2 = self._slice(y2, (start[0] // 2, start[1] // 2, start[2] // 4), (e2, e2, e2 // 2))
+        t2 = tuple(self._slice(b, (start[0] // 2, start[1] // 2, start[2] // 4), (e2, e2, e2 // 2))
+                   for b in y2)
         # conv_r1's skip: the 4-halo y1 window phase 2b reads too.
         t1, s5 = self._tile_window(y1, start, self.PHASE2B_MARGIN, self._r1_margin())
         self._write(r1, s5, self._phase2c_tile(t2, t1))
@@ -323,45 +371,50 @@ class HierarchicalProcessor:
         M/2+8 -> conv_r2[cat crop(t2)] M/2+4 -> up M+8 (L1) -> conv_r1[cat t1]
         M+4 -> slack crop 2/side -> M.
         """
-        p = self._exec
-        h = apply_resample_block_packed(p["down_l2"], t2, "DA")
-        h = apply_resnet_block_packed(p["conv_c"], h, "CACA")
-        h = apply_resample_block_packed(p["up_r2"], h, "UA")
-        h = apply_resnet_block_packed_cat(p["conv_r2"], (_center_crop(t2, h.shape[1:4]), h), "CACA")
-        h = apply_resample_block_packed(p["up_r1"], h, "UA")
-        h = apply_resnet_block_packed_cat(p["conv_r1"], (_center_crop(t1, h.shape[1:4]), h), "CACA")
-        return h[:, 2:-2, 2:-2, 1:-1]
+        def crop_like(t, h):
+            return tuple(_center_crop(b, h[0].shape[1:4]) for b in t)
 
-    def _phase3_all(self, boxp, r1, out):
+        h = self._resample("down_l2", t2, "DA")
+        h = self._resnet("conv_c", h)
+        h = self._resample("up_r2", h, "UA")
+        h = self._resnet_cat("conv_r2", crop_like(t2, h), h)
+        h = self._resample("up_r1", h, "UA")
+        h = self._resnet_cat("conv_r1", crop_like(t1, h), h)
+        return tuple(b[:, 2:-2, 2:-2, 1:-1] for b in h)
+
+    def _phase3_all(self, boxp, r1, outs, head):
         cfg = self.config
         for a in self._tile_anchors(list(zip(cfg.size, cfg.tile))):
-            self._phase3_step(boxp, r1, a, out)
-        return out
+            self._phase3_step(boxp, r1, a, outs, head)
+        return outs
 
-    def _phase3_step(self, boxp, r1, a, out):
+    def _phase3_step(self, boxp, r1, a, outs, head):
         td, th, tw = self.config.tile
         hm = self.PHASE3_R1_MARGIN_PACKED
         box_tile = boxp[:, :, a[0]:a[0] + td + 16, a[1]:a[1] + th + 16, a[2]:a[2] + tw + 16]
-        # level-1 halo-4 slice: r1 carries that margin, so it starts at the plain anchor
-        r1_tile = self._slice(
-            r1, (a[0] // 2, a[1] // 2, a[2] // 4),
+        # level-1 halo-4 slices: r1 carries that margin, so they start at the plain anchor
+        r1_tile = tuple(self._slice(
+            b, (a[0] // 2, a[1] // 2, a[2] // 4),
             (td // 2 + 2 * hm, th // 2 + 2 * hm, (tw // 2 + 2 * hm) // 2),
-        )
-        y = self._phase3_tile(box_tile, r1_tile)
-        out[:, :, a[0]:a[0] + td, a[1]:a[1] + th, a[2]:a[2] + tw].copy_(y)
+        ) for b in r1)
+        for out, y in zip(outs, self._phase3_tile(box_tile, r1_tile, head)):
+            out[:, :, a[0]:a[0] + td, a[1]:a[1] + th, a[2]:a[2] + tw].copy_(y)
 
-    def _phase3_tile(self, box_tile, r1_tile):
-        """(1, C, T+16, ., .) box window + level-1 halo-4 r1 slice -> NCDHW tile."""
-        p = self._exec
+    def _phase3_tile(self, box_tile, r1_tile, head):
+        """(1, C, T+16, ., .) box window + level-1 halo-4 r1 slices -> NCDHW
+        displacement tile (and velocity tile).  ``head`` holds the velocity
+        head's (vel_fac * 6, vel_fac * 6 / Dz), float32."""
         x0 = box_tile[:, :, 8:-8, 8:-8, 8:-8]
-        y0 = apply_resnet_entry_packed(p["conv_l00"], box_tile)
-        y0 = apply_resnet_block_packed(p["conv_l01"], y0, "CACA")
-        u = apply_resample_block_packed(p["up_r0"], r1_tile, "UA")
-        u = u[:, 4:-4, 4:-4, 2:-2]  # up_r0 slack: 4 voxels (2 cells) per side
-        h = apply_resnet_block_packed_cat(p["conv_r00"], (y0, u), "CACA")
-        h = apply_resnet_block_packed(p["conv_r01"], h, "CAC")
-        h = s2d.unpack_to_ncdhw(h)
-        return (h + x0) * torch.tensor(6.0, dtype=h.dtype)
+        y0 = self._resnet("conv_l01", self._entry(box_tile))
+        u = self._resample("up_r0", r1_tile, "UA")
+        u = tuple(b[:, 4:-4, 4:-4, 2:-2] for b in u)  # up_r0 slack: 4 voxels (2 cells) per side
+        h = self._resnet_cat("conv_r00", y0, u)
+        h = tuple(s2d.unpack_to_ncdhw(b) for b in self._resnet("conv_r01", h, "CAC"))
+        disp = (h[0] + x0) * torch.tensor(6.0, dtype=h[0].dtype)
+        if not self.compute_vel:
+            return (disp,)
+        dx_norm, x0_norm = (f.to(h[0].dtype) for f in head)
+        return disp, h[1] * dx_norm + x0 * x0_norm
 
     # ------------------------------------------------------------------
     # process_box
@@ -375,6 +428,7 @@ class HierarchicalProcessor:
                     profile: bool = False):
         """Emulate a full periodic (C, N, N, N) box at redshift z and matter density Om.
 
+        Returns the displacement, or ``(disp, vel)`` for a velocity model.
         With ``profile=True`` the device is synchronised after each phase and
         the per-phase wall times land in ``self.last_timings`` (seconds).
         """
@@ -395,26 +449,34 @@ class HierarchicalProcessor:
             box = torch.as_tensor(np.asarray(input_box) if not torch.is_tensor(input_box)
                                   else input_box)
             box = box.to(device=self.device, dtype=cfg.dtype)
-            dz = torch.tensor(float(growth_factor(z, Om)), dtype=torch.float32).to(cfg.dtype)
-            scale = dz / torch.tensor(6.0, dtype=cfg.dtype)
+            dz32 = torch.tensor(float(growth_factor(z, Om)), dtype=torch.float32)
+            vf = torch.tensor(float(vel_norm(z, Om)) if self.compute_vel else 0.0,
+                              dtype=torch.float32)
+            head = (vf * 6.0, vf * 6.0 / dz32)
+            scale = dz32.to(cfg.dtype) / torch.tensor(6.0, dtype=cfg.dtype)
             # NCDHW scaled input, wrap-padded by 8 (phase-1 halo 4, phase-3 halo 8).
             boxp = _wrap_pad(box[None] * scale.to(self.device), 8)
             del box
             stamp("scale")
-            h1 = self._phase1_all(boxp, self._new_buf(self._h1_margin()))
+            h1 = self._phase1_all(boxp, self._new_bufs(self._h1_margin()))
             stamp("phase1")
-            y1 = self._phase2a_all(h1, self._new_buf(self._y1_margin()))
+            y1 = self._phase2a_all(h1, self._new_bufs(self._y1_margin()))
             del h1
             stamp("phase2a")
-            y2 = self._phase2b_all(y1, self._new_buf(self._y2_margin(), level=2))
+            y2 = self._phase2b_all(y1, self._new_bufs(self._y2_margin(), level=2))
             stamp("phase2b")
-            r1 = self._phase2c_all(y1, y2, self._new_buf(self._r1_margin()))
+            r1 = self._phase2c_all(y1, y2, self._new_bufs(self._r1_margin()))
             del y1, y2
             stamp("phase2c")
-            out = torch.zeros((1, cfg.in_chan) + cfg.size, dtype=cfg.output_dtype,
-                              device=self.device)
-            out = self._phase3_all(boxp, r1, out)[0]
+            outs = tuple(
+                torch.zeros((1, cfg.in_chan) + cfg.size, dtype=cfg.output_dtype,
+                            device=self.device)
+                for _ in r1
+            )
+            outs = self._phase3_all(boxp, r1, outs, head)
+            del r1
             stamp("phase3")
         if profile:
             self.last_timings = timings
-        return out.cpu().numpy() if as_numpy else out
+        outs = tuple(o[0].cpu().numpy() if as_numpy else o[0] for o in outs)
+        return outs if self.compute_vel else outs[0]

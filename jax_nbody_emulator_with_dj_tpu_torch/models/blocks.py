@@ -1,4 +1,4 @@
-"""ResNet / Resample blocks over plain dicts of torch tensors (displacement).
+"""ResNet / Resample blocks over plain dicts of torch tensors.
 
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/models/blocks.py``.  A ResNet
 block ``'CACA'`` runs a 1x1 skip conv cropped by ``num_conv`` voxels per side
@@ -7,9 +7,13 @@ to match the VALID-conv shrinkage of the main path (conv3 -> act -> conv3 ->
 ``'UA'`` (2x up conv).  Parameters are nested dicts with the JAX package's
 keys and DHWIO kernels: ``{'skip': {...}, 'conv_0': {...}, 'conv_1': {...}}``.
 
+Velocity ("premod-vel") layers carry a baked tangent kernel ``dweight`` and
+thread a (primal, tangent) pair: ``y = conv(x, W) + b``, ``dy = conv(x, dW) +
+conv(dx, W)``.
+
 The second half holds the packed (space-to-depth) forms the hierarchical
-runtime runs, with weights packed once per processor build.  Styled and
-velocity (tangent) layers are not ported yet (ROADMAP items A2/A3).
+runtime runs, with weights packed once per processor build.  Styled layers
+are not ported yet (ROADMAP item A3).
 """
 
 from __future__ import annotations
@@ -20,9 +24,17 @@ import numpy as np
 import torch
 
 from ..ops import s2d
-from ..ops.conv3d import conv1x1, conv3d, conv_down2, conv_up2, leaky_relu
+from ..ops.conv3d import (
+    conv1x1,
+    conv3d,
+    conv_down2,
+    conv_up2,
+    leaky_relu,
+    leaky_relu_with_tangent,
+)
+from ..ops.style import recover_dweight_factors
 from ..ops.winograd import transform_packed_w3
-from ..ops.winograd_cuda import conv3d_wino_packed
+from ..ops.winograd_cuda import conv3d_wino_packed, conv3d_wino_pair_packed
 
 _KSIZE = {"conv": 3, "skip": 1, "down": 2, "up": 2}  # 'C', skip, 'D', 'U'
 
@@ -99,6 +111,25 @@ def apply_conv_layer(p, x, kind, *, in_fmt="NDHWC", out_fmt="NDHWC"):
     return (_run_conv(x, p["weight"], kind, in_fmt, out_fmt) + bias).to(x.dtype)
 
 
+def apply_conv_layer_vel(p, x, dx, kind, *, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """Premod-vel conv layer: ``(y, dy)`` from the baked ``weight``/``dweight``.
+
+    dy = conv(x, dW) + conv(dx, W), as one conv over the channel concat of
+    (x, dx).  ``dx=None`` marks the model's first layers, whose folded dW
+    carries the w/Dz rule: then dy = conv(x, dW).
+    """
+    bias = p["bias"].float()
+    bias = bias[:, None, None, None] if out_fmt == "NCDHW" else bias
+    w, dw = p["weight"], p["dweight"]
+    y = _run_conv(x, w, kind, in_fmt, out_fmt) + bias
+    if dx is None:
+        dy = _run_conv(x, dw, kind, in_fmt, out_fmt)
+    else:
+        xx = torch.cat([x, dx], dim=1 if in_fmt == "NCDHW" else 4)
+        dy = _run_conv(xx, torch.cat([dw, w], dim=3), kind, in_fmt, out_fmt)
+    return y.to(x.dtype), dy.to(x.dtype)
+
+
 def _spatial_axes(fmt: str):
     return (2, 3, 4) if fmt == "NCDHW" else (1, 2, 3)
 
@@ -142,6 +173,32 @@ def apply_resnet_block(p, x, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
     return x
 
 
+def apply_resnet_block_vel(p, x, dx, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """Premod-vel ResNet block threading (x, dx); ``dx=None`` marks the
+    model's first block."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    last_act = seq.endswith("A") and main_seq != seq
+    y, dy = apply_conv_layer_vel(p["skip"], x, dx, "skip", in_fmt=in_fmt, out_fmt=out_fmt)
+    if num_conv > 0:
+        target = tuple(y.shape[ax] - 2 * num_conv for ax in _spatial_axes(out_fmt))
+        y, dy = _center_crop(y, target, out_fmt), _center_crop(dy, target, out_fmt)
+    conv_idx = 0
+    for op in main_seq:
+        if op == "C":
+            fi = in_fmt if conv_idx == 0 else "NDHWC"
+            fo = out_fmt if conv_idx == num_conv - 1 else "NDHWC"
+            x, dx = apply_conv_layer_vel(p[f"conv_{conv_idx}"], x, dx, "conv", in_fmt=fi, out_fmt=fo)
+            conv_idx += 1
+        elif op == "A":
+            x, dx = leaky_relu_with_tangent(x, dx)
+        else:
+            raise ValueError(f"layer type {op!r} not supported (use C or A)")
+    x, dx = x + y, dx + dy
+    if last_act:
+        x, dx = leaky_relu_with_tangent(x, dx)
+    return x, dx
+
+
 def apply_resample_block(p, x, seq):
     """Primal resample block: 'DA' (down) or 'UA' (up); channels-last."""
     conv_idx = 0
@@ -157,6 +214,21 @@ def apply_resample_block(p, x, seq):
     return x
 
 
+def apply_resample_block_vel(p, x, dx, seq):
+    """Premod-vel resample block: 'DA' or 'UA'; channels-last."""
+    conv_idx = 0
+    for op in seq:
+        if op in ("D", "U"):
+            kind = "down" if op == "D" else "up"
+            x, dx = apply_conv_layer_vel(p[f"conv_{conv_idx}"], x, dx, kind)
+            conv_idx += 1
+        elif op == "A":
+            x, dx = leaky_relu_with_tangent(x, dx)
+        else:
+            raise ValueError(f"layer type {op!r} not supported")
+    return x, dx
+
+
 # ---------------------------------------------------------------------------
 # Space-to-depth packed execution (premodulated 64-channel interior)
 #
@@ -164,7 +236,10 @@ def apply_resample_block(p, x, seq):
 # phases.  Weights are packed ONCE per processor build, already in the
 # compute dtype and on the device: 3x3x3 kernels in torch's OIDHW layout,
 # Winograd kernels ("wh") in bf16, and the per-part weights of the decoder's
-# concat inputs split into contiguous tensors.
+# concat inputs split into contiguous tensors.  Velocity layers run the
+# FACTORED tangent: a style-folded dweight has the rank structure
+# dW = W (.) g_in - W (.) c_out, so dy = op(x (.) g + dx, W) - c (.) op(x, W),
+# one conv sharing the primal kernel (kernel B2 at the Winograd sites).
 # ---------------------------------------------------------------------------
 
 _PACKERS = {
@@ -203,13 +278,16 @@ def _cat_weight_parts(w, kind, n):
     return [w[..., i * rows:(i + 1) * rows, :] for i in range(n)]
 
 
-def pack_conv_layer_params(p, kind, *, groups: int = 1, wino: bool = False,
-                           dtype=torch.float32, device=None):
+def pack_conv_layer_params(p, kind, *, groups: int = 1, vel: bool = False,
+                           wino: bool = False, dtype=torch.float32, device=None):
     """Pre-pack one premodulated conv layer for packed execution.
 
     Returns ``{"w", "b"}`` (plus ``"wh"`` for Winograd-eligible convs when
     ``wino``); with ``groups > 1`` the weights are the list of per-part
-    operands of the implicit concat input instead.
+    operands of the implicit concat input instead.  With ``vel``, also the
+    tangent's rank factors: ``"g"`` unpacked (Ci,) and ``"c"`` packed (2Co,),
+    float32, from the fold's ``dfac_in``/``dfac_out`` or recovered from
+    ``dweight``.
     """
     wp = _PACKERS[kind](p["weight"].float(), groups)
     parts = _cat_weight_parts(wp, kind, groups)
@@ -226,12 +304,30 @@ def pack_conv_layer_params(p, kind, *, groups: int = 1, wino: bool = False,
         wh = [dev(t, torch.bfloat16)
               for t in _cat_weight_parts(transform_packed_w3(wp), kind, groups)]
         out["wh"] = wh[0] if groups == 1 else wh
+    if vel:
+        g, c = _tangent_factors(p)
+        out["g"] = dev(g, torch.float32)
+        out["c"] = dev(s2d.pack_bias(c), torch.float32)
     return out
 
 
-def pack_resnet_params(p, seq, *, groups: int = 1, wino: bool = False, dtype=torch.float32, device=None):
+def _tangent_factors(p):
+    """float32 (g (Ci,), c (Co,)) with dweight = weight (.) g - weight (.) c."""
+    if "dfac_in" in p:
+        return p["dfac_in"].float(), p["dfac_out"].float()
+    g, c, ok = recover_dweight_factors(p["weight"], p["dweight"])
+    if not ok:
+        raise NotImplementedError(
+            "this dweight has no rank structure (a learned tangent kernel); the "
+            "materialized-tangent layers are not ported: ROADMAP item A11"
+        )
+    return torch.from_numpy(g).float(), torch.from_numpy(c).float()
+
+
+def pack_resnet_params(p, seq, *, groups: int = 1, vel: bool = False, wino: bool = False,
+                       dtype=torch.float32, device=None):
     _, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(vel=vel, dtype=dtype, device=device)
     out = {"skip": pack_conv_layer_params(p["skip"], "skip", groups=groups, **kw)}
     for i in range(num_conv):
         out[f"conv_{i}"] = pack_conv_layer_params(
@@ -240,25 +336,53 @@ def pack_resnet_params(p, seq, *, groups: int = 1, wino: bool = False, dtype=tor
     return out
 
 
-def pack_resample_params(p, seq, *, dtype=torch.float32, device=None):
+def pack_resample_params(p, seq, *, vel: bool = False, dtype=torch.float32, device=None):
     kind = "down" if "D" in seq else "up"
-    return {"conv_0": pack_conv_layer_params(p["conv_0"], kind, dtype=dtype, device=device)}
+    return {"conv_0": pack_conv_layer_params(p["conv_0"], kind, vel=vel, dtype=dtype,
+                                             device=device)}
+
+
+def _wino_dtypes(dtype):
+    """The JAX package's dtype contract for the Winograd kernels, as
+    ``(out_dtype, cast_back)``: float32 input runs on bf16 operands with
+    float32 output; any other non-bf16 input goes through bf16 and its bf16
+    output is cast back."""
+    if dtype == torch.float32:
+        return torch.float32, None
+    return None, (None if dtype == torch.bfloat16 else dtype)
 
 
 def _wino_conv(xp, wh, bias=None, leaky=False):
-    """The Winograd conv with the JAX package's dtype contract: float32
-    input runs on bf16 operands with float32 output; any other non-bf16
-    input goes through bf16 and is cast back."""
-    out_dtype = None
-    cast_back = None
-    if xp.dtype == torch.float32:
-        out_dtype = torch.float32
-        xp = xp.to(torch.bfloat16)
-    elif xp.dtype != torch.bfloat16:
-        cast_back = xp.dtype
-        xp = xp.to(torch.bfloat16)
-    y = conv3d_wino_packed(xp, wh, bias, leaky=leaky, out_dtype=out_dtype)
+    """Kernel B1 under the dtype contract of ``_wino_dtypes``."""
+    out_dtype, cast_back = _wino_dtypes(xp.dtype)
+    y = conv3d_wino_packed(xp.to(torch.bfloat16), wh, bias, leaky=leaky, out_dtype=out_dtype)
     return y.to(cast_back) if cast_back is not None else y
+
+
+# Packed-W output width (owp) above which the factored-tangent pair runs as two
+# single-kernel launches and an elementwise epilogue instead of the fused pair
+# kernel: the JAX package's threshold, kept as it is (on the H100 both sides
+# are measured in PERF.md; choosing it is ROADMAP item A1).
+_PAIR_W_MAX = 96
+
+
+def _wino_conv_pair(xp, sp, wh, bias, cvec, act):
+    """Factored-tangent pair: y = conv(xp, W) + b, dy = conv(sp, W) - c (.)
+    conv(xp, W), the LeakyReLU pair when ``act``.  Kernel B2 up to
+    ``_PAIR_W_MAX``; above it two B1 launches, whose c-fold runs on the
+    rounded outputs, as in the JAX package."""
+    if xp.shape[3] - 1 > _PAIR_W_MAX:
+        z = _wino_conv(xp, wh)
+        zt = _wino_conv(sp, wh)
+        y = z if bias is None else z + bias.to(z.dtype)
+        dy = zt if cvec is None else zt - cvec.to(z.dtype) * z
+        return leaky_relu_with_tangent(y, dy) if act else (y, dy)
+    out_dtype, cast_back = _wino_dtypes(xp.dtype)
+    y, dy = conv3d_wino_pair_packed(xp.to(torch.bfloat16), sp.to(torch.bfloat16), wh, bias,
+                                    cvec, leaky=act, out_dtype=out_dtype)
+    if cast_back is not None:
+        y, dy = y.to(cast_back), dy.to(cast_back)
+    return y, dy
 
 
 def _apply_packed(pp, xp, kind, act: bool = False):
@@ -301,26 +425,78 @@ def _crop_packed(t, dhw_crop: int):
     return t[:, c:-c, c:-c, c // 2:-(c // 2), :]
 
 
-def _apply_packed_main(pp, seq, first):
-    """The conv/act main path of a packed ResNet block; ``first(fuse)`` runs
-    conv_0 (plain or on a concat), the rest are plain packed convs."""
+def _fin_vel(y, dy, act, out_dtype):
+    if act:
+        y, dy = leaky_relu_with_tangent(y, dy)
+    return y.to(out_dtype), dy.to(out_dtype)
+
+
+def _apply_packed_vel(pp, xp, dxp, kind, act: bool = False):
+    """One packed vel conv layer, factored tangent: y = op(x, W) + b and
+    dy = op(x (.) g + dx, W) - c (.) op(x, W); ``act`` fuses the LeakyReLU
+    pair (in-kernel at the Winograd sites)."""
+    out_dtype = xp.dtype
+    sp = xp * pp["g"].repeat(2).to(xp.dtype) + dxp  # g tiled over the packed rows [q0|q1]
+    if "wh" in pp:
+        y, dy = _wino_conv_pair(xp, sp, pp["wh"], pp["b"], pp["c"], act)
+        return y.to(out_dtype), dy.to(out_dtype)
+    op = _PACKED_OPS[kind]
+    z = op(xp, pp["w"])
+    y = z + pp["b"].to(xp.dtype)
+    dy = op(sp, pp["w"]) - pp["c"].to(z.dtype) * z
+    return _fin_vel(y, dy, act, out_dtype)
+
+
+def _apply_packed_vel_cat(pp, xs, dxs, kind, act: bool = False):
+    """Vel form of ``_apply_packed_cat``: per part one raw factored pair
+    (no bias, c-fold or act); the bias, the c-fold and the LeakyReLU pair
+    run once on the sum of the parts."""
+    out_dtype = xs[0].dtype
+    wino = "wh" in pp
+    op = _PACKED_OPS[kind]
+    cg = pp["g"].shape[0] // len(xs)
+    z = zt = None
+    for i, (x, dx, wi) in enumerate(zip(xs, dxs, pp["wh"] if wino else pp["w"])):
+        sp = x * pp["g"][i * cg:(i + 1) * cg].repeat(2).to(x.dtype) + dx
+        zi, zti = _wino_conv_pair(x, sp, wi, None, None, False) if wino else (op(x, wi), op(sp, wi))
+        z = zi if z is None else z + zi
+        zt = zti if zt is None else zt + zti
+    y = z + pp["b"].to(z.dtype)
+    dy = zt - pp["c"].to(z.dtype) * z
+    return _fin_vel(y, dy, act, out_dtype)
+
+
+def _apply_packed_main(pp, seq, first, layer, act):
+    """The conv/act main path of a packed ResNet block.  ``first(fuse)`` runs
+    conv_0 (plain or on a concat), ``layer(pp_conv, h, fuse)`` the other
+    convs, ``act(h)`` a LeakyReLU no conv could fuse; ``h`` is a tensor, or
+    a (primal, tangent) pair."""
     main_seq, _, _ = _resnet_channel_plan(seq, 0, 0)
-    xp = None
+    h = None
     conv_idx = 0
     i = 0
     while i < len(main_seq):
         if main_seq[i] == "C":
             fuse = i + 1 < len(main_seq) and main_seq[i + 1] == "A"
-            if conv_idx == 0:
-                xp = first(fuse)
-            else:
-                xp = _apply_packed(pp[f"conv_{conv_idx}"], xp, "conv", act=fuse)
+            h = first(fuse) if conv_idx == 0 else layer(pp[f"conv_{conv_idx}"], h, fuse)
             conv_idx += 1
             i += 2 if fuse else 1
         else:  # 'A'
-            xp = leaky_relu(xp)
+            h = act(h)
             i += 1
-    return xp
+    return h
+
+
+def _disp_layer(pp, h, fuse):
+    return _apply_packed(pp, h, "conv", act=fuse)
+
+
+def _vel_layer(pp, h, fuse):
+    return _apply_packed_vel(pp, *h, "conv", act=fuse)
+
+
+def _vel_act(h):
+    return leaky_relu_with_tangent(*h)
 
 
 def apply_resnet_block_packed(pp, xp, seq):
@@ -329,7 +505,8 @@ def apply_resnet_block_packed(pp, xp, seq):
     y = _crop_packed(_apply_packed(pp["skip"], xp, "skip"), num_conv)
     x_in = xp
     xp = _apply_packed_main(
-        pp, seq, lambda fuse: _apply_packed(pp["conv_0"], x_in, "conv", act=fuse)
+        pp, seq, lambda fuse: _apply_packed(pp["conv_0"], x_in, "conv", act=fuse),
+        _disp_layer, leaky_relu,
     )
     xp = xp + y
     return leaky_relu(xp) if seq.endswith("A") and main_seq != seq else xp
@@ -341,15 +518,50 @@ def apply_resnet_block_packed_cat(pp, xs, seq):
     main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
     y = _crop_packed(_apply_packed_cat(pp["skip"], xs, "skip"), num_conv)
     xp = _apply_packed_main(
-        pp, seq, lambda fuse: _apply_packed_cat(pp["conv_0"], xs, "conv", act=fuse)
+        pp, seq, lambda fuse: _apply_packed_cat(pp["conv_0"], xs, "conv", act=fuse),
+        _disp_layer, leaky_relu,
     )
     xp = xp + y
     return leaky_relu(xp) if seq.endswith("A") and main_seq != seq else xp
 
 
+def _vel_block_tail(h, skip, num_conv, last_act):
+    """Residual add of the cropped skip pair, then the block's last LeakyReLU pair."""
+    h = tuple(a + _crop_packed(b, num_conv) for a, b in zip(h, skip))
+    return leaky_relu_with_tangent(*h) if last_act else h
+
+
+def apply_resnet_block_vel_packed(pp, xp, dxp, seq):
+    """Packed premodulated-vel ResNet block: (x, dx) -> (y, dy)."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    skip = _apply_packed_vel(pp["skip"], xp, dxp, "skip")
+    h = _apply_packed_main(
+        pp, seq, lambda fuse: _apply_packed_vel(pp["conv_0"], xp, dxp, "conv", act=fuse),
+        _vel_layer, _vel_act,
+    )
+    return _vel_block_tail(h, skip, num_conv, seq.endswith("A") and main_seq != seq)
+
+
+def apply_resnet_block_vel_packed_cat(pp, xs, dxs, seq):
+    """``apply_resnet_block_vel_packed`` on implicit concats of packed parts
+    (primal parts ``xs``, tangent parts ``dxs``); pp packed with groups=len(xs)."""
+    main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
+    skip = _apply_packed_vel_cat(pp["skip"], xs, dxs, "skip")
+    h = _apply_packed_main(
+        pp, seq, lambda fuse: _apply_packed_vel_cat(pp["conv_0"], xs, dxs, "conv", act=fuse),
+        _vel_layer, _vel_act,
+    )
+    return _vel_block_tail(h, skip, num_conv, seq.endswith("A") and main_seq != seq)
+
+
 def apply_resample_block_packed(pp, xp, seq):
     xp = _apply_packed(pp["conv_0"], xp, "down" if "D" in seq else "up")
     return leaky_relu(xp) if seq.endswith("A") else xp
+
+
+def apply_resample_block_vel_packed(pp, xp, dxp, seq):
+    h = _apply_packed_vel(pp["conv_0"], xp, dxp, "down" if "D" in seq else "up")
+    return leaky_relu_with_tangent(*h) if seq.endswith("A") else h
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +571,14 @@ def apply_resample_block_packed(pp, xp, seq):
 # ---------------------------------------------------------------------------
 
 
-def pack_resnet_entry_params(p, seq, *, wino: bool = False, dtype=torch.float32, device=None):
-    """Fold a 'CACA' entry block's params for packed NCDHW-input execution."""
+def pack_resnet_entry_params(p, seq, *, vel: bool = False, wino: bool = False,
+                             dtype=torch.float32, device=None):
+    """Fold a 'CACA' entry block's params for packed NCDHW-input execution.
+
+    With ``vel`` the first conv's and the skip's tangent kernels (first-layer
+    rule: dy = conv(x, dW)) stack beside the primal ones along Cols, so one
+    im2col operand and one skip operand serve both.
+    """
     _, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
     if num_conv != 2:
         raise ValueError("entry block is the model's first 'CACA' block")
@@ -368,14 +586,18 @@ def pack_resnet_entry_params(p, seq, *, wino: bool = False, dtype=torch.float32,
     def dev(t, dt):
         return t.to(device=device, dtype=dt).contiguous()
 
+    keys = ("weight", "dweight") if vel else ("weight",)
+    w0 = torch.cat([s2d.pack_w3_entry(p["conv_0"][k].float()) for k in keys], -1)
+    wsk = torch.cat([s2d.pack_w1_entry(p["skip"][k].float()) for k in keys], -1)
     return {
         "conv_0": {
-            "w9": dev(s2d.entry_cols(s2d.pack_w3_entry(p["conv_0"]["weight"].float())), dtype),
+            "w9": dev(s2d.entry_cols(w0), dtype),
             "b": dev(s2d.pack_bias(p["conv_0"]["bias"].float()), torch.float32),
         },
-        "conv_1": pack_conv_layer_params(p["conv_1"], "conv", wino=wino, dtype=dtype, device=device),
+        "conv_1": pack_conv_layer_params(p["conv_1"], "conv", vel=vel, wino=wino, dtype=dtype,
+                                         device=device),
         "skip": {
-            "w": dev(s2d.pack_w1_entry(p["skip"]["weight"].float()), dtype),
+            "w": dev(wsk, dtype),
             "b": dev(s2d.pack_bias(p["skip"]["bias"].float()), torch.float32),
         },
     }
@@ -389,3 +611,16 @@ def apply_resnet_entry_packed(pp, x, seq="CACA"):
     xs = x[:, :, 2:-2, 2:-2, 2:-2]
     h = h + s2d.conv1_entry_packed(xs, pp["skip"]["w"]) + pp["skip"]["b"].to(x.dtype)
     return leaky_relu(h)
+
+
+def apply_resnet_entry_vel_packed(pp, x, seq="CACA"):
+    """Entry vel 'CACA' block (first-layer rule: the tangent starts from dW):
+    (B, C, D, H, W) NCDHW -> packed (h, dh)."""
+    b0 = pp["conv_0"]["b"].to(x.dtype)
+    c2 = b0.shape[0]
+    z = s2d.conv3_entry_im2col(x, pp["conv_0"]["w9"])
+    h, dh = leaky_relu_with_tangent(z[..., :c2] + b0, z[..., c2:])
+    h, dh = _apply_packed_vel(pp["conv_1"], h, dh, "conv")
+    zs = s2d.conv1_entry_packed(x[:, :, 2:-2, 2:-2, 2:-2], pp["skip"]["w"])
+    h = h + zs[..., :c2] + pp["skip"]["b"].to(x.dtype)
+    return leaky_relu_with_tangent(h, dh + zs[..., c2:])

@@ -21,7 +21,9 @@ import torch
 from .blocks import (
     _center_crop,
     apply_resample_block,
+    apply_resample_block_vel,
     apply_resnet_block,
+    apply_resnet_block_vel,
     init_resample_block,
     init_resnet_block,
 )
@@ -85,3 +87,32 @@ def unet_forward(params, x, *, levels: int = 3, io_fmt: str = "NCDHW"):
     h = torch.cat([_center_crop(skips[0], h.shape[1:4]), h], dim=-1)
     h = apply_resnet_block(p["conv_r00"], h, "CACA")
     return apply_resnet_block(p["conv_r01"], h, "CAC", out_fmt=io_fmt)
+
+
+def unet_forward_vel(params, x, *, levels: int = 3, io_fmt: str = "NCDHW"):
+    """Premodulated-vel U-Net forward: threads (x, dx) through the baked dweights.
+
+    The tangent enters as ``dx=None`` at conv_l00, whose folded dweight
+    carries the first-layer w/Dz rule.  Returns ``(h, dh)`` in ``io_fmt``.
+    """
+    p = params["params"]
+
+    def cat(skip, h):
+        y, dy = (_center_crop(t, h[0].shape[1:4]) for t in skip)
+        return torch.cat([y, h[0]], dim=-1), torch.cat([dy, h[1]], dim=-1)
+
+    h = apply_resnet_block_vel(p["conv_l00"], x, None, "CACA", in_fmt=io_fmt)
+    h = apply_resnet_block_vel(p["conv_l01"], *h, "CACA")
+    skips = [h]
+    h = apply_resample_block_vel(p["down_l0"], *h, "DA")
+    for i in range(1, levels):
+        y = apply_resnet_block_vel(p[f"conv_l{i}"], *h, "CACA")
+        skips.append(y)
+        h = apply_resample_block_vel(p[f"down_l{i}"], *y, "DA")
+    h = apply_resnet_block_vel(p["conv_c"], *h, "CACA")
+    for i in range(levels - 1, 0, -1):
+        h = apply_resample_block_vel(p[f"up_r{i}"], *h, "UA")
+        h = apply_resnet_block_vel(p[f"conv_r{i}"], *cat(skips[i], h), "CACA")
+    h = apply_resample_block_vel(p["up_r0"], *h, "UA")
+    h = apply_resnet_block_vel(p["conv_r00"], *cat(skips[0], h), "CACA")
+    return apply_resnet_block_vel(p["conv_r01"], *h, "CAC", out_fmt=io_fmt)

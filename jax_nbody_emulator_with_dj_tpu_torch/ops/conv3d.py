@@ -74,3 +74,13 @@ def conv_up2(x, w):
 def leaky_relu(x, negative_slope: float = 0.01):
     """LeakyReLU with the reference's 0.01 slope."""
     return F.leaky_relu(x, negative_slope)
+
+
+def leaky_relu_with_tangent(x, dx, negative_slope: float = 0.01):
+    """LeakyReLU on a (primal, tangent) pair: dy = dx where x > 0, else
+    slope * dx, with the slope rounded to x's dtype (as the JAX package
+    rounds it, which matters in bf16)."""
+    slope = torch.tensor(negative_slope, dtype=x.dtype)
+    pos = x > 0
+    return (torch.where(pos, x, x * slope.item()),
+            torch.where(pos, dx, dx * slope.to(dx.dtype).item()))

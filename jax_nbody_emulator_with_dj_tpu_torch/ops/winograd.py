@@ -6,12 +6,13 @@ tap-MACs; the packed W axis keeps its exact 2-tap accumulation:
 
     y[., a] = sum_a  AT (G wp[., a] G^T) (.) (BT x[., u+a] B) A
 
-``conv3_packed_wino`` is the plain PyTorch version of the hand-written CUDA
-kernel (``ops/winograd_cuda.py``, ``csrc/wino_f23.cu``): same inputs, same
-epilogue, and the same roundings as the kernel (and as the Pallas kernel it
-replaces) — the BT transform rounds to the operand dtype after each axis,
-the point products accumulate in float32, and the AT fold, bias and
-LeakyReLU run in float32 before one cast to the output dtype.
+``conv3_packed_wino`` and ``conv3_packed_wino_pair`` are the plain PyTorch
+versions of the hand-written CUDA kernels B1 and B2 (``ops/winograd_cuda.py``,
+``csrc/wino_f23.cu``): same inputs, same epilogue, and the same roundings as
+the kernels (and as the Pallas kernels they replace) — the BT transform
+rounds to the operand dtype after each axis, the point products accumulate
+in float32, and the AT fold and the epilogue run in float32 before one cast
+to the output dtype.
 """
 
 from __future__ import annotations
@@ -45,19 +46,12 @@ def _bt(x, axis: int, n: int):
     return torch.stack([r[0] - r[2], r[1] + r[2], r[2] - r[1], r[1] - r[3]])
 
 
-def conv3_packed_wino(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None):
-    """VALID (3,3,2)-tap packed conv via F(2,3)^2 Winograd, + bias + LeakyReLU.
+def _wino_acc(xp, wh):
+    """float32 (B, D-2, H-2, WP-1, F2) result of the VALID packed conv.
 
-    Args:
-        xp: (B, D, H, WP, C2) packed input.
-        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``.
-        bias: (F2/2,) or (F2,) float32 bias, or None.
-        leaky: apply LeakyReLU(0.01) after the bias.
-        out_dtype: output dtype (default ``xp.dtype``).
-    Returns (B, D-2, H-2, WP-1, F2).  Odd output extents are handled by
-    zero-padding the input to even ones and cropping.
+    Odd output extents are handled by zero-padding the input to even ones
+    and cropping.
     """
-    out_dtype = out_dtype or xp.dtype
     b, d, h, wpd, c2 = xp.shape
     od, oh, ow = d - 2, h - 2, wpd - 1
     nd, nh = (od + 1) // 2, (oh + 1) // 2
@@ -75,10 +69,58 @@ def conv3_packed_wino(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None)
     at = torch.tensor(_AT, dtype=torch.float32, device=xp.device)
     y = torch.einsum("pu,qv,uvmf->pqmf", at, at, s)
     y = y.reshape(2, 2, b, nd, nh, ow, f2).permute(2, 3, 0, 4, 1, 5, 6)
-    y = y.reshape(b, 2 * nd, 2 * nh, ow, f2)[:, :od, :oh]
+    return y.reshape(b, 2 * nd, 2 * nh, ow, f2)[:, :od, :oh]
+
+
+def _vec(v, f2: int):
+    """A (F2/2,) unpacked or (F2,) packed float32 per-channel vector, as (F2,)."""
+    v = v.float().reshape(-1)
+    return v if v.shape[0] == f2 else v.repeat(2)
+
+
+def conv3_packed_wino(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None):
+    """VALID (3,3,2)-tap packed conv via F(2,3)^2 Winograd, + bias + LeakyReLU.
+
+    Args:
+        xp: (B, D, H, WP, C2) packed input.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``.
+        bias: (F2/2,) or (F2,) float32 bias, or None.
+        leaky: apply LeakyReLU(0.01) after the bias.
+        out_dtype: output dtype (default ``xp.dtype``).
+    Returns (B, D-2, H-2, WP-1, F2).
+    """
+    y = _wino_acc(xp, wh)
     if bias is not None:
-        bias = bias.float()
-        y = y + (bias if bias.shape[0] == f2 else bias.repeat(2))
+        y = y + _vec(bias, y.shape[-1])
     if leaky:
         y = F.leaky_relu(y, 0.01)
-    return y.to(out_dtype)
+    return y.to(out_dtype or xp.dtype)
+
+
+def conv3_packed_wino_pair(xp, sp, wh, bias=None, c=None, *, leaky: bool = False,
+                           out_dtype=None):
+    """The factored-tangent pair over one Winograd kernel ``wh``:
+
+        y  = conv(xp, W) + bias
+        dy = conv(sp, W) - c (.) conv(xp, W)
+
+    on the float32 results; with ``leaky``, dy takes slope 0.01 wherever the
+    float32 y <= 0, and then y does too.  ``bias``/``c`` are (F2/2,) or
+    (F2,) float32, or None for zeros (the raw per-part form).  Returns
+    ``(y, dy)``, each (B, D-2, H-2, WP-1, F2) in ``out_dtype`` (default
+    ``xp.dtype``).
+    """
+    if sp.shape != xp.shape or sp.dtype != xp.dtype:
+        raise ValueError(f"sp {tuple(sp.shape)} {sp.dtype} != xp {tuple(xp.shape)} {xp.dtype}")
+    ax = _wino_acc(xp, wh)
+    f2 = ax.shape[-1]
+    y = ax if bias is None else ax + _vec(bias, f2)
+    dy = _wino_acc(sp, wh)
+    if c is not None:
+        dy = dy - _vec(c, f2) * ax
+    if leaky:
+        neg = y <= 0
+        dy = torch.where(neg, 0.01 * dy, dy)
+        y = torch.where(neg, 0.01 * y, y)
+    out_dtype = out_dtype or xp.dtype
+    return y.to(out_dtype), dy.to(out_dtype)

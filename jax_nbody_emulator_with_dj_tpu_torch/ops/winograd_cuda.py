@@ -1,16 +1,18 @@
-"""The F(2,3)^2 Winograd packed conv kernel: build, bind, launch.
+"""The F(2,3)^2 Winograd packed conv kernels: build, bind, launch.
 
-Replaces ``jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py::
-conv3d_wino_pallas_packed``.  The kernel is CUDA C++ for ``sm_90a``
-(``csrc/wino_f23.cu``; its header says what bounds it and why it is built
-the way it is).  It is compiled with ``nvcc`` into a shared library with a
-plain C interface the first time a CUDA tensor reaches it, into ``_build/``
-beside the sources (git-ignored), and bound with ``ctypes``.
+Replace two kernels of ``jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py``:
+``conv3d_wino_pallas_packed`` (B1, ``conv3d_wino_packed`` here) and
+``conv3d_wino_pallas_pair_packed`` (B2, ``conv3d_wino_pair_packed``).  Both
+are CUDA C++ for ``sm_90a`` in one source (``csrc/wino_f23.cu``; its header
+says what bounds them and why they are built the way they are).  It is
+compiled with ``nvcc`` into a shared library with a plain C interface the
+first time a CUDA tensor reaches a kernel, into ``_build/`` beside the
+sources (git-ignored), and bound with ``ctypes``.
 
-``conv3d_wino_packed`` is the one entry point.  A CUDA tensor runs the
-kernel or raises; a CPU tensor runs the plain PyTorch version
-(``ops/winograd.py::conv3_packed_wino``), the same function with the same
-roundings.  There is no other route.
+A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain PyTorch
+version (``ops/winograd.py::conv3_packed_wino``, ``conv3_packed_wino_pair``),
+the same function with the same roundings.  There is no other route.  Each
+entry point counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from .winograd import conv3_packed_wino
+from .winograd import _vec, conv3_packed_wino, conv3_packed_wino_pair
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "wino_f23.cu"
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/wino_f23.cu`` (once per source version) and load it."""
+    """Compile ``csrc/wino_f23.cu`` (once per source and flags version) and load it."""
     global _lib, build_log
     if _lib is not None:
         return _lib
@@ -68,6 +70,12 @@ def build() -> ctypes.CDLL:
     fn = lib.wino_f23_packed
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    fn = lib.wino_f23_pair_packed
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -96,6 +104,15 @@ def _check(xp, wh, out_dtype):
         raise ValueError(f"xp {tuple(xp.shape)} is smaller than the 3x3x2 window")
 
 
+def _vec_arg(v, f2, device, name):
+    """A (F2/2,) or (F2,) float32 vector (None: zeros) as a contiguous (F2,) on ``device``."""
+    if v is None:
+        return torch.zeros(f2, dtype=torch.float32, device=device)
+    if v.dim() != 1 or v.shape[0] not in (f2, f2 // 2):
+        raise ValueError(f"{name} has shape {tuple(v.shape)}, the conv {f2} outputs")
+    return _vec(v.to(device), f2).contiguous()
+
+
 def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None):
     """Packed Winograd conv: xp (B, D, H, WP, C2) -> (B, D-2, H-2, WP-1, F2).
 
@@ -114,13 +131,7 @@ def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None
     _check(xp, wh, out_dtype)
     b, d, h, wp, c2 = xp.shape
     f2 = wh.shape[-1]
-    if bias is None:
-        bias = torch.zeros(f2, dtype=torch.float32, device=xp.device)
-    else:
-        bias = bias.to(device=xp.device, dtype=torch.float32)
-        bias = (bias if bias.shape[0] == f2 else bias.repeat(2)).contiguous()
-    if bias.shape != (f2,):
-        raise ValueError(f"bias has {bias.shape[0]} entries, the conv {f2} outputs")
+    bias = _vec_arg(bias, f2, xp.device, "bias")
     lib = build()
     y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
@@ -136,3 +147,49 @@ def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None
 
 
 conv3d_wino_packed.launches = 0  # kernel launches since the last reset
+
+
+def conv3d_wino_pair_packed(xp, sp, wh, bias=None, c=None, *, leaky: bool = False,
+                            out_dtype=None):
+    """The fused factored-tangent pair (kernel B2) over shared ``wh``:
+    ``y = conv(xp, W) + bias`` and ``dy = conv(sp, W) - c (.) conv(xp, W)``,
+    with the LeakyReLU pair (dy's slope from the float32 y) when ``leaky``.
+
+    Args:
+        xp, sp: packed inputs of one shape (B, D, H, WP, C2); bf16 on CUDA.
+            Each may have any strides with contiguous channels.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``; bf16 on CUDA.
+        bias, c: (F2/2,) or (F2,) float32, or None for zeros.
+        leaky: fuse the LeakyReLU(0.01) pair.
+        out_dtype: bf16 or float32 (default: xp's dtype).
+    Returns ``(y, dy)``, each (B, D-2, H-2, WP-1, F2).
+    """
+    out_dtype = out_dtype or xp.dtype
+    if xp.device.type == "cpu":
+        return conv3_packed_wino_pair(xp, sp, wh, bias, c, leaky=leaky, out_dtype=out_dtype)
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    if sp.shape != xp.shape or sp.device != xp.device:
+        raise ValueError(f"sp {tuple(sp.shape)} on {sp.device} != xp {tuple(xp.shape)} on {xp.device}")
+    _check(xp, wh, out_dtype)
+    _check(sp, wh, out_dtype)
+    b, d, h, wp, c2 = xp.shape
+    f2 = wh.shape[-1]
+    bias = _vec_arg(bias, f2, xp.device, "bias")
+    c = _vec_arg(c, f2, xp.device, "c")
+    lib = build()
+    y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
+    dy = torch.empty_like(y)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.wino_f23_pair_packed(
+        xp.data_ptr(), sp.data_ptr(), wh.data_ptr(), bias.data_ptr(), c.data_ptr(),
+        y.data_ptr(), dy.data_ptr(), *xp.stride()[:4], *sp.stride()[:4],
+        b, d, h, wp, c2, f2, int(leaky), int(out_dtype == torch.float32), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wino_f23 pair kernel launch failed with CUDA error {rc}")
+    conv3d_wino_pair_packed.launches += 1
+    return y, dy
+
+
+conv3d_wino_pair_packed.launches = 0  # kernel launches since the last reset

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from jax_nbody_emulator_with_dj_tpu import NBodyEmulatorCore as JCore
+from jax_nbody_emulator_with_dj_tpu import NBodyEmulatorVelCore as JVelCore
 from jax_nbody_emulator_with_dj_tpu import StyleNBodyEmulatorCore as JStyleCore
 from jax_nbody_emulator_with_dj_tpu.emulator import modulate_emulator_parameters as jmodulate
 from jax_nbody_emulator_with_dj_tpu.hierarchical import HierarchicalConfig as JConfig
@@ -320,13 +321,20 @@ def test_wino_default_follows_device(style4):
     assert proc.device.type == "cpu" and proc.wino is False
 
 
+def _learned_vel_tree():
+    """A plain-vel tree whose dweight is learned (random): no rank structure."""
+    return params_from_jax(JVelCore(mid_chan=4).init(jax.random.key(5)))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(compute_vel=True), "A2"),
+    (dict(compute_vel=True, params=_learned_vel_tree,
+          processor_config=HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8))), "A11"),
     (dict(premodulate=False, compute_vel=False), "A3"),
 ])
 def test_unported_emulators_raise(style4, kw, item):
     args = dict(premodulate=True, params=params_from_jax(style4), premodulate_z=Z,
                 premodulate_Om=OM, mid_chan=4)
+    kw = {k: v() if callable(v) else v for k, v in kw.items()}
     with pytest.raises(NotImplementedError, match=item):
         create_emulator(**{**args, **kw})
 
