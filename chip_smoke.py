@@ -2,10 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (B1, the Winograd conv, and B2, its fused
-factored-tangent pair) from ``jax_nbody_emulator_with_dj_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes the main paths
-give it, then drives both paths at full width through ``create_emulator``
+Builds the port's CUDA kernels from ``jax_nbody_emulator_with_dj_tpu_torch/
+csrc`` (one ``nvcc`` per source, all started together): B1, the F(2,3)^2
+Winograd conv, and B2, its fused factored-tangent pair (``wino_f23.cu``); B4,
+the direct conv with a resident window, and B5, the direct conv streamed
+plane by plane over N parts (``direct_conv.cu``); B3, the mixed F(2,3) x
+F(4,3) Winograd conv (``wino_f43.cu``).  Holds each against its plain PyTorch
+version at the shapes its path gives it, drives the conv-route bench
+(``experiments/conv_routes.py``, the path of B3, B4 and B5) at full width at
+both of its default shapes and with two parts, then drives both model paths
+at full width through ``create_emulator``
 -> ``HierarchicalProcessor.process_box`` with seeded premodulated models
 (mid_chan=64, 3 levels, bf16): the displacement model on a 128^3 box, and
 the displacement+velocity model on a 128^3 box (every pair site runs B2),
@@ -38,8 +44,15 @@ GATE_SLICE = 0.02  # rel max error of the box, wino on vs off
 GATE_VEL = 0.08  # velocity: std(v1 - v0) / std(v0), the JAX package's gate
 GATE_F32_VEL = 1e-3  # 16^3 f32 vel box vs model, rms: one LeakyReLU-tangent mask flip
                      # at a pre-activation within rounding of 0 moved CPU boxes by 1-3e-4
-SOURCE = "jax_nbody_emulator_with_dj_tpu_torch/csrc/wino_f23.cu"
-PALLAS = "jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py"
+GATE_DIRECT_F32 = 1e-5  # B4/B5 vs plain, float32 out: only the summation order differs
+GATE_MIXED = 0.08  # B3 (mixed Winograd), bf16 out: the JAX package's gate for its kernel
+GATE_MIXED_F32 = 1e-4  # B3 vs plain, float32 out: same bf16 transforms, float32 sums reordered
+                       # through AT4's entries of up to 8
+CSRC = "jax_nbody_emulator_with_dj_tpu_torch/csrc/"
+JAX_OPS = "jax_nbody_emulator_with_dj_tpu/ops/"
+PHASE3 = (1, 142, 142, 71, 128)  # xp of the first conv of a 128^3 phase-3 tile
+PHASE2A = (1, 68, 68, 34, 128)
+RAGGED = (2, 13, 16, 21, 128)
 RUNS = 5  # warm process_box calls timed per configuration (median reported)
 
 
@@ -83,13 +96,24 @@ def phase_env():
 
 
 def phase_build():
-    from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda
+    """One nvcc per source, all started together; then bind each library."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import (
+        _cuda_build,
+        direct_conv_cuda,
+        winograd43_cuda,
+        winograd_cuda,
+    )
 
+    mods = (winograd_cuda, direct_conv_cuda, winograd43_cuda)
     t0 = time.perf_counter()
-    winograd_cuda.build()
-    ptxas = [ln.strip() for ln in winograd_cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    _cuda_build.build_all(m.SOURCE for m in mods)
+    for m in mods:
+        m.build()
+    seconds = round(time.perf_counter() - t0, 3)
+    for m in mods:
+        ptxas = [ln.strip() for ln in _cuda_build.build_logs[m.SOURCE].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", source=CSRC + m.SOURCE, seconds_all=seconds, ptxas=ptxas)
 
 
 def phase_kernel():
@@ -140,7 +164,8 @@ def phase_kernel():
             row["ms"] = cuda_ms(lambda: conv3d_wino_packed(xp, wh, b, leaky=leaky, out_dtype=od))
             row["plain_ms"] = cuda_ms(lambda: conv3_packed_wino(xp, wh, b, leaky=leaky, out_dtype=od))
             # the direct packed conv (cuDNN) that the path runs with wino=False
-            row["direct_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
+            row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
+            row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B1", shape[1:4])
         log("kernel", **row)
         if not rel < GATE_KERNEL:
             raise RuntimeError(f"{name}: kernel vs plain rel error {rel} >= {GATE_KERNEL}")
@@ -184,9 +209,10 @@ def phase_pair_kernel():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
-    whs = {}
+    whs, packed = {}, {}
     for ci, co in ((64, 64), (64, 128), (128, 64), (128, 128)):
         w = torch.randn((3, 3, 3, ci, co), generator=gen, device=dev) / (27 * ci) ** 0.5
+        packed[(2 * ci, 2 * co)] = s2d.pack_w3(w).to(bf16)
         whs[(2 * ci, 2 * co)] = transform_packed_w3(s2d.pack_w3(w)).to(bf16).contiguous()
     cases = [
         # (name, xp shape, F2, bias and c, leaky, out dtype, timed, xp a strided view)
@@ -242,6 +268,21 @@ def phase_pair_kernel():
             row["plain_ms"] = cuda_ms(lambda: conv3_packed_wino_pair(xp, sp, wh, bias, c,
                                                                      leaky=leaky, out_dtype=od))
             row["singles_ms"] = cuda_ms(singles)
+            w_lib = s2d.oidhw_w3(packed[(c2, f2)])
+
+            def library():  # one pair site with the kernels off: two cuDNN convs + epilogue
+                z = s2d.conv3_packed(xp, w_lib)
+                zt = s2d.conv3_packed(sp, w_lib)
+                y = z if bp is None else z + bp.to(z.dtype)
+                dy = zt if c is None else zt - c.to(z.dtype) * z
+                return leaky_relu_with_tangent(y, dy) if leaky else (y, dy)
+
+            row["library_ms"] = cuda_ms(library)
+            routes = _routes()  # twice B1's multiplies; two inputs read, two outputs written
+            macs = 2 * routes.route_macs("B1", shape[1:4], c2, f2)
+            nbytes = (2 * routes.conv_bytes(shape[1:4], c2, f2, 32, n_out=1)
+                      - 32 * c2 * f2 * 2)  # ... and the shared weights once
+            row["bound_ms"], row["bound_by"] = routes.bound_ms(macs, nbytes)
         log("pair_kernel", **row)
         if not ok:
             raise RuntimeError(f"{name}: pair kernel vs plain version out of gate: {errs}")
@@ -249,6 +290,217 @@ def phase_pair_kernel():
         del xp, sp, got, ref
     torch.cuda.empty_cache()
     return rows
+
+
+def _routes():
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments import conv_routes
+
+    return conv_routes
+
+
+def _rand_view(shape, gen, dev, view):
+    """A bf16 input of ``shape``; with ``view`` a window of a larger (padded)
+    buffer, as the runtime reads its level buffers."""
+    if not view:
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    b, d, h, wp, c = shape
+    big = torch.randn((b, d + 3, h + 2, wp + 5, c), generator=gen, device=dev).to(torch.bfloat16)
+    return big[:, 2:2 + d, 1:1 + h, 3:3 + wp]
+
+
+def _held(phase, name, got, ref, gate, row):
+    """Log one kernel-vs-plain row; raise if it is out of its gate."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: bad kernel output {tuple(got.shape)} {got.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    row.update(case=name, max_abs_err=err, rel_err=rel, gate=gate)
+    log(phase, **row)
+    if not rel < gate:
+        raise RuntimeError(f"{phase} {name}: kernel vs plain rel error {rel} >= {gate}")
+    return row
+
+
+def phase_direct_kernel():
+    """Kernel B4 (direct conv, resident window) vs its plain version, bf16."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv import conv3_packed_taps
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import conv3d_direct_packed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=dev) * 0.05
+    wp = s2d.pack_w3(w).to(torch.bfloat16).contiguous()
+    w_oidhw = s2d.oidhw_w3(wp)
+    bias = torch.randn(64, generator=gen, device=dev) * 0.1
+    w2 = torch.randn((3, 3, 3, 128, 128), generator=gen, device=dev) * 0.03
+    wp2 = s2d.pack_w3(w2).to(torch.bfloat16).contiguous()
+    cases = [  # (name, xp shape, bias, leaky, timed, xp a strided view)
+        ("phase3_conv", PHASE3, True, True, True, False),
+        ("phase3_conv", PHASE3, False, False, False, False),
+        ("phase2a_conv", PHASE2A, True, True, True, False),
+        ("decoder_conv_256", (1, 36, 36, 18, 256), False, True, False, False),
+    ]
+    cases += [("ragged", RAGGED, b, lk, False, view)
+              for b, lk, view in ((True, True, True), (True, False, False),
+                                  (False, True, False), (False, False, True))]
+    rows = []
+    for name, shape, use_b, leaky, timed, view in cases:
+        xp = _rand_view(shape, gen, dev, view)
+        wp_c = wp if shape[-1] == 128 else wp2
+        b = (bias if shape[-1] == 128 else torch.randn(128, generator=gen, device=dev)) \
+            if use_b else None
+        bp = None if b is None else s2d.pack_bias(b)
+        got = conv3d_direct_packed(xp, wp_c, b, leaky=leaky)
+        ref = conv3_packed_taps(xp, wp_c, bp, leaky=leaky)
+        row = dict(shape=list(shape), bias=use_b, leaky=leaky, out="bfloat16", strided_view=view)
+        if timed:
+            row["ms"] = cuda_ms(lambda: conv3d_direct_packed(xp, wp_c, b, leaky=leaky))
+            row["plain_ms"] = cuda_ms(lambda: conv3_packed_taps(xp, wp_c, bp, leaky=leaky), n=3)
+            row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
+            row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B4", shape[1:4])
+        rows.append(_held("direct_kernel", name, got, ref, GATE_KERNEL, row))
+        del xp, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_stripe_kernel():
+    """Kernel B5 (direct conv, plane-streamed, N parts) vs its plain version:
+    one, two and three parts, a non-square kernel, bf16 and float32 out."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv import conv3_packed_taps
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import conv3_packed_stripe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, part shape, packed channels per part, Co, bias, leaky, out, timed, view)
+        ("phase3_conv", PHASE3, (128,), 128, True, True, bf16, True, False),
+        ("phase3_conv", PHASE3, (128,), 128, False, False, f32, False, False),
+        ("phase2a_conv", PHASE2A, (128,), 128, True, True, bf16, True, False),
+        ("decoder_concat_conv0", (1, 36, 36, 18, 128), (128, 128), 256, True, True, bf16, True,
+         False),
+        ("decoder_concat_conv0", (1, 36, 36, 18, 128), (128, 128), 256, True, False, f32, False,
+         True),
+        ("three_parts", (1, 20, 22, 12, 128), (128, 128, 128), 128, True, True, bf16, False, False),
+        ("three_parts", (1, 20, 22, 12, 128), (128, 128, 128), 128, False, False, f32, False, True),
+        ("four_unequal_parts", (2, 9, 11, 10, 0), (32, 64, 128, 96), 72, True, True, f32, False,
+         False),
+    ]
+    cases += [("ragged", RAGGED, cins, 128, bb, lk, od, False, view)
+              for cins, bb, lk, od, view in (
+                  ((128,), True, True, bf16, True), ((128,), False, False, f32, False),
+                  ((128, 128), True, True, f32, True), ((128, 128), False, True, bf16, False),
+                  ((64, 128), True, False, f32, False))]
+    rows = []
+    for name, shape, cins, co, use_b, leaky, od, timed, view in cases:
+        xps = tuple(_rand_view(shape[:4] + (c,), gen, dev, view and i == 0)
+                    for i, c in enumerate(cins))
+        ctot = sum(cins)
+        wp = (torch.randn((3, 3, 2, ctot, co), generator=gen, device=dev)
+              / (13.5 * ctot) ** 0.5).to(bf16)
+        bp = torch.randn(co, generator=gen, device=dev) * 0.1 if use_b else None
+        got = conv3_packed_stripe(xps, wp, bp, leaky=leaky, out_dtype=od)
+        ref = conv3_packed_taps(xps, wp, bp, leaky=leaky, out_dtype=od)
+        row = dict(shape=list(shape[:4]), cins=list(cins), co=co, bias=use_b, leaky=leaky,
+                   out=str(od).replace("torch.", ""), strided_view=view)
+        if timed:
+            w_oidhw = s2d.oidhw_w3(wp)
+            row["ms"] = cuda_ms(lambda: conv3_packed_stripe(xps, wp, bp, leaky=leaky, out_dtype=od))
+            row["plain_ms"] = cuda_ms(
+                lambda: conv3_packed_taps(xps, wp, bp, leaky=leaky, out_dtype=od), n=3)
+            # cuDNN on the materialised concat
+            row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(
+                xps[0] if len(xps) == 1 else torch.cat(xps, dim=-1), w_oidhw))
+            row["bound_ms"], row["bound_by"], _ = _routes().route_bound(
+                "B5", shape[1:4], len(cins), cins[0], co)
+        gate = GATE_DIRECT_F32 if od == f32 else GATE_KERNEL
+        rows.append(_held("stripe_kernel", name, got, ref, gate, row))
+        del xps, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wino43_kernel():
+    """Kernel B3 (mixed F(2,3) x F(4,3) Winograd) vs its plain version."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd import (
+        conv3_packed_wino43,
+        transform_packed_w3_mixed,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd43_cuda import conv3d_wino43_packed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=dev) * 0.05
+    what = transform_packed_w3_mixed(s2d.pack_w3(w)).to(bf16).contiguous()
+    w_oidhw = s2d.oidhw_w3(s2d.pack_w3(w)).to(bf16)
+    bias = torch.randn(64, generator=gen, device=dev) * 0.1
+    w2 = torch.randn((3, 3, 3, 128, 64), generator=gen, device=dev) * 0.03
+    what2 = transform_packed_w3_mixed(s2d.pack_w3(w2)).to(bf16).contiguous()
+    cases = [  # (name, xp shape, bias, leaky, out dtype, timed, xp a strided view)
+        ("phase3_conv", PHASE3, True, True, bf16, True, False),
+        ("phase3_conv", PHASE3, False, False, f32, False, False),
+        ("phase2a_conv", PHASE2A, True, True, bf16, True, False),
+        ("phase2a_conv", PHASE2A, True, False, f32, False, False),
+        ("decoder_conv1_256", (1, 36, 36, 18, 256), True, True, bf16, False, False),
+    ]
+    cases += [("ragged", RAGGED, b, lk, od, False, view)
+              for b, lk, od, view in ((True, True, bf16, True), (True, True, f32, False),
+                                      (False, False, bf16, False), (False, False, f32, True))]
+    cases += [("ragged_odd", (1, 9, 11, 7, 128), True, True, f32, False, True)]
+    rows = []
+    for name, shape, use_b, leaky, od, timed, view in cases:
+        xp = _rand_view(shape, gen, dev, view)
+        what_c = what if shape[-1] == 128 else what2
+        b = bias if use_b else None
+        got = conv3d_wino43_packed(xp, what_c, b, leaky=leaky, out_dtype=od)
+        ref = conv3_packed_wino43(xp, what_c, b, leaky=leaky, out_dtype=od)
+        row = dict(shape=list(shape), bias=use_b, leaky=leaky, out=str(od).replace("torch.", ""),
+                   strided_view=view)
+        if timed:
+            row["ms"] = cuda_ms(lambda: conv3d_wino43_packed(xp, what_c, b, leaky=leaky,
+                                                             out_dtype=od))
+            row["plain_ms"] = cuda_ms(
+                lambda: conv3_packed_wino43(xp, what_c, b, leaky=leaky, out_dtype=od), n=3)
+            row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
+            row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B3", shape[1:4])
+        gate = GATE_MIXED_F32 if od == f32 else GATE_MIXED
+        rows.append(_held("wino43_kernel", name, got, ref, gate, row))
+        del xp, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_conv_routes():
+    """The path of B3, B4 and B5: the conv-route bench at full width, at both
+    of its default shapes and with two parts.  The kernels' counts are set to
+    0 just before and read just after; every route must pass its gate (the
+    bench raises otherwise) and each of the three kernels must have launched."""
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import (
+        conv3_packed_stripe,
+        conv3d_direct_packed,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd43_cuda import conv3d_wino43_packed
+
+    routes = _routes()
+    wrappers = dict(B3=conv3d_wino43_packed, B4=conv3d_direct_packed, B5=conv3_packed_stripe)
+    for fn in wrappers.values():
+        fn.launches = 0
+    rows = []
+    for shape, parts in ((routes.SHAPES[0], 1), (routes.SHAPES[1], 1), (routes.SHAPES[0], 2)):
+        rows += routes.run(shape, parts, "cuda",
+                           emit=lambda line: log("conv_routes", **json.loads(line)))
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    log("conv_routes_launches", **launches)
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing or not all(r["ok"] for r in rows):
+        raise RuntimeError(f"conv routes: kernels launched 0 times: {missing}; rows {rows}")
+    return launches
 
 
 def _rel(a, b):
@@ -375,6 +627,19 @@ def phase_vel_256():
         raise RuntimeError(f"256^3 vel box: a kernel was launched 0 times: {launches}")
 
 
+def _kernel_entry(name, source, replaces, launches, rows):
+    """One entry of the ``kernels`` line: the worst error over the kernel's
+    rows, the times and the bound of its first timed row (the phase-3 shape)."""
+    timed = next(r for r in rows if "ms" in r)
+    return {
+        "name": name, "route": "cuda", "source": CSRC + source, "replaces": JAX_OPS + replaces,
+        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+        "shape": timed["shape"],
+    }
+
+
 def main():
     card = phase_env()
     sys.path.insert(0, str(ROOT))
@@ -386,28 +651,23 @@ def main():
     launches_disp = phase_slice(vel=False)
     launches_vel = phase_slice(vel=True)
     phase_vel_256()
-    main_row = next(r for r in rows if "ms" in r)
-    pair_row = next(r for r in pair_rows if "ms" in r)
-    kernels = [{
-        "name": "conv3d_wino_packed (B1, wino_f23)",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": f"{PALLAS}:259",
-        "launches": launches_disp["B1"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }, {
-        "name": "conv3d_wino_pair_packed (B2, wino_f23 pair)",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": f"{PALLAS}:558",
-        "launches": launches_vel["B2"],
-        "max_abs_err": max(r["max_abs_err"] for r in pair_rows),
-        "ms": pair_row["ms"],
-        "plain_ms": pair_row["plain_ms"],
-        "singles_ms": pair_row["singles_ms"],
-    }]
+    direct_rows = phase_direct_kernel()
+    stripe_rows = phase_stripe_kernel()
+    wino43_rows = phase_wino43_kernel()
+    launches_routes = phase_conv_routes()
+    kernels = [
+        _kernel_entry("conv3d_wino_packed (B1, wino_f23)", "wino_f23.cu",
+                      "winograd_pallas.py:259", launches_disp["B1"], rows),
+        _kernel_entry("conv3d_wino_pair_packed (B2, wino_f23 pair)", "wino_f23.cu",
+                      "winograd_pallas.py:558", launches_vel["B2"], pair_rows),
+        _kernel_entry("conv3d_wino43_packed (B3, wino_f43)", "wino_f43.cu",
+                      "winograd43_pallas.py:240", launches_routes["B3"], wino43_rows),
+        _kernel_entry("conv3d_direct_packed (B4, direct_conv window)", "direct_conv.cu",
+                      "pallas_conv.py:209", launches_routes["B4"], direct_rows),
+        _kernel_entry("conv3_packed_stripe (B5, direct_conv stripe)", "direct_conv.cu",
+                      "stripe_conv.py:192", launches_routes["B5"], stripe_rows),
+    ]
+    kernels[1]["singles_ms"] = next(r for r in pair_rows if "ms" in r)["singles_ms"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

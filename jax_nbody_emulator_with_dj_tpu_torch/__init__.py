@@ -4,7 +4,12 @@ A second package beside ``jax_nbody_emulator_with_dj_tpu`` (the reference it
 is tested against).  Ported so far: the premodulated displacement and
 displacement+velocity models on the packed hierarchical runtime, with the
 F(2,3)^2 Winograd conv and its fused factored-tangent pair as CUDA kernels
-for ``sm_90a`` (``csrc/wino_f23.cu``).  This package never imports JAX.
+for ``sm_90a`` (``csrc/wino_f23.cu``); and the three other conv routes of the
+JAX package -- direct with a resident window, direct plane-streamed over N
+parts (``csrc/direct_conv.cu``), mixed F(2,3) x F(4,3) Winograd
+(``csrc/wino_f43.cu``) -- behind the conv-route bench
+(``experiments/conv_routes.py``).  Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.  This package never imports JAX.
 """
 
 from .cosmology import dlogH_dloga, growth_factor, growth_rate, hubble_rate, vel_norm
@@ -16,6 +21,15 @@ from .emulator import (
 )
 from .hierarchical import HierarchicalConfig, HierarchicalProcessor
 from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
+from .ops import (
+    conv3_packed_stripe,
+    conv3d_direct,
+    conv3d_direct_packed,
+    conv3d_wino43,
+    conv3d_wino43_packed,
+    conv3d_wino_packed,
+    conv3d_wino_pair_packed,
+)
 
 __version__ = "0.1.0"
 
@@ -33,4 +47,11 @@ __all__ = [
     "growth_rate",
     "dlogH_dloga",
     "vel_norm",
+    "conv3d_wino_packed",
+    "conv3d_wino_pair_packed",
+    "conv3d_wino43",
+    "conv3d_wino43_packed",
+    "conv3d_direct",
+    "conv3d_direct_packed",
+    "conv3_packed_stripe",
 ]

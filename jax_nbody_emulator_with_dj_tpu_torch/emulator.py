@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from .cosmology import growth_factor, vel_norm
-from .hierarchical import HierarchicalConfig, HierarchicalProcessor
+from .hierarchical import HierarchicalConfig, HierarchicalProcessor, resolve_device
 from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
 from .ops.style import premodulate_layer, style_vector
 
@@ -26,8 +26,8 @@ class NBodyEmulator:
     model: NBodyEmulatorCore | NBodyEmulatorVelCore
     params: dict
     processor: HierarchicalProcessor | None
+    device: torch.device
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
 
     @property
     def compute_vel(self) -> bool:
@@ -118,14 +118,15 @@ def create_emulator(
             runtime for ``process_box``.
         premodulate_z / premodulate_Om: fixed cosmology for the fold.
         dtype: compute dtype; ``processor_config.dtype`` wins if present.
-        device: torch device of the processor and of ``apply`` (default CPU).
+        device: torch device of the processor and of ``apply`` (default: the CUDA
+            card; raises if there is none.  Pass ``"cpu"`` to run on the CPU).
         **model_kwargs: forwarded to the model (in_chan, out_chan, mid_chan,
             eps, levels, data_format).
     """
     if not premodulate:
         raise NotImplementedError("style (non-premodulated) cores are not ported: ROADMAP item A3")
     model = (NBodyEmulatorVelCore if compute_vel else NBodyEmulatorCore)(**model_kwargs)
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
 
     if params is None:
         raise ValueError("pass params=: the port ships no pretrained weights")

@@ -114,6 +114,19 @@ class HierarchicalConfig:
                 raise ValueError(f"packed mode needs tile W % 4 == 0, got {self.tile}")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another one.  Raises where none was named and there is no card."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device was given and CUDA is not available: the port runs on the "
+            'CUDA card by default; pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
+
+
 class HierarchicalProcessor:
     """Overlap-minimal runtime for the 3-level premodulated models (disp, disp+vel)."""
 
@@ -135,7 +148,7 @@ class HierarchicalProcessor:
         self.model = model
         self.compute_vel = isinstance(model, NBodyEmulatorVelCore)
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.wino = config.wino if config.wino is not None else self.device.type == "cuda"
         self._exec = self._pack_params(params["params"])
         self.last_timings = {}

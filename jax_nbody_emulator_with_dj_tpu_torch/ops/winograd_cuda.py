@@ -6,8 +6,8 @@ Replace two kernels of ``jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py``
 are CUDA C++ for ``sm_90a`` in one source (``csrc/wino_f23.cu``; its header
 says what bounds them and why they are built the way they are).  It is
 compiled with ``nvcc`` into a shared library with a plain C interface the
-first time a CUDA tensor reaches a kernel, into ``_build/`` beside the
-sources (git-ignored), and bound with ``ctypes``.
+first time a CUDA tensor reaches a kernel (``ops/_cuda_build.py``), and bound
+with ``ctypes``.
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain PyTorch
 version (``ops/winograd.py::conv3_packed_wino``, ``conv3_packed_wino_pair``),
@@ -18,55 +18,23 @@ entry point counts its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _cuda_build
 from .winograd import _vec, conv3_packed_wino, conv3_packed_wino_pair
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "wino_f23.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+SOURCE = "wino_f23.cu"
 
 _lib = None
-build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    nvcc = Path(home) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found at {nvcc}; set CUDA_HOME")
-    return str(nvcc)
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/wino_f23.cu`` (once per source and flags version) and load it."""
-    global _lib, build_log
+    """Compile ``csrc/wino_f23.cu`` (once per version of the source) and bind it."""
+    global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"wino_f23_{key}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _cuda_build.build(SOURCE)
     fn = lib.wino_f23_packed
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
@@ -83,11 +51,14 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _check(xp, wh, out_dtype):
+def _check(xp, wh, out_dtype, points=(4, 4)):
+    """Raise on what a Winograd kernel does not take; ``points`` are the
+    transform's points along (D, H): (4, 4) for F(2,3)^2, (4, 6) for the mixed form."""
     if xp.dim() != 5 or wh.dim() != 5:
-        raise ValueError(f"xp must be 5-D and wh (4,4,2,C2,F2), got {xp.shape}, {wh.shape}")
+        raise ValueError(f"xp must be 5-D and wh {points + (2,)} + (C2, F2), got {xp.shape}, "
+                         f"{wh.shape}")
     c2, f2 = wh.shape[-2], wh.shape[-1]
-    if tuple(wh.shape[:3]) != (4, 4, 2) or xp.shape[-1] != c2:
+    if tuple(wh.shape[:3]) != points + (2,) or xp.shape[-1] != c2:
         raise ValueError(f"wh {tuple(wh.shape)} does not match xp {tuple(xp.shape)}")
     if xp.dtype != torch.bfloat16 or wh.dtype != torch.bfloat16:
         raise TypeError(f"kernel takes bf16 xp and wh, got {xp.dtype}, {wh.dtype}")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1, B2) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1-B5) against their plain PyTorch versions, on the card.
 
 Skips without a CUDA device.  Imports neither JAX nor the repo's
 ``conftest.py`` (which imports JAX), so it runs on a machine that has only
@@ -10,13 +10,17 @@ Tolerances: float32 outputs must agree to 1e-5 relative (same roundings, only
 the float32 summation order differs); bf16 outputs to 1e-2 (one bf16 rounding
 of the output on either side).  B2's dy is compared where kernel and plain
 version agree on the sign of y (the LeakyReLU pair's mask); the share where
-they disagree must stay under 1e-4.
+they disagree must stay under 1e-4.  B3 (mixed Winograd) is held to 1e-4 in
+float32 (the float32 sums pass through AT4's entries of up to 8 in another
+order) and to 0.08 in bf16, the JAX package's gate for its kernel.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from jax_nbody_emulator_with_dj_tpu_torch.ops import direct_conv as tdirect
+from jax_nbody_emulator_with_dj_tpu_torch.ops import direct_conv_cuda, winograd43_cuda
 from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d as ts2d
 from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd as twino
 from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda
@@ -26,6 +30,107 @@ def rnd(*shape, seed=0, scale=1.0):
     return torch.from_numpy(
         (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
     )
+
+
+def _input(shape, c, seed, view):
+    """bf16 input on the card; ``view``: a window of a larger buffer (its own strides)."""
+    full = (shape[0], shape[1] + 3, shape[2] + 2, shape[3] + 5, c) if view else shape + (c,)
+    xp = rnd(*full, seed=seed).to("cuda", torch.bfloat16)
+    return xp[:, 2:2 + shape[1], 1:1 + shape[2], 3:3 + shape[3]] if view else xp
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+class TestCudaConvRoutes:
+    """B4, B5 and B3 against their plain versions on the card (skip without one),
+    over the case grid of ``chip_smoke.py``'s phases at small extents."""
+
+    @pytest.fixture(autouse=True)
+    def _need_cuda(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU and nvcc")
+
+    @pytest.mark.parametrize("shape,view", [((1, 12, 20, 18), False), ((2, 13, 16, 21), True),
+                                            ((1, 3, 3, 2), False)])
+    @pytest.mark.parametrize("c2", [128, 256])
+    @pytest.mark.parametrize("use_bias", [False, True])
+    @pytest.mark.parametrize("leaky", [False, True])
+    def test_direct_kernel_matches_plain(self, shape, view, c2, use_bias, leaky):
+        xp = _input(shape, c2, 31, view)
+        wp = ts2d.pack_w3(rnd(3, 3, 3, c2 // 2, c2 // 2, seed=32, scale=(13.5 * c2) ** -0.5))
+        wp = wp.to("cuda", torch.bfloat16)
+        b = rnd(c2 // 2, seed=33, scale=0.1).to("cuda") if use_bias else None
+        before = direct_conv_cuda.conv3d_direct_packed.launches
+        got = direct_conv_cuda.conv3d_direct_packed(xp, wp, b, leaky=leaky)
+        ref = tdirect.conv3_packed_taps(xp, wp, None if b is None else ts2d.pack_bias(b),
+                                        leaky=leaky)
+        torch.cuda.synchronize()
+        assert direct_conv_cuda.conv3d_direct_packed.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel(got, ref) < 0.01
+
+    @pytest.mark.parametrize("shape,view", [((1, 12, 20, 18), False), ((2, 13, 16, 21), True)])
+    @pytest.mark.parametrize("cins,co", [((128,), 128), ((128, 128), 256), ((128, 128, 128), 128),
+                                         ((32, 64, 128, 96), 72), ((64,), 8)])
+    @pytest.mark.parametrize("fused", [False, True])
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    def test_stripe_kernel_matches_plain(self, shape, view, cins, co, fused, out_dtype):
+        """``fused``: bias and LeakyReLU on; parts: one to four, equal and unequal."""
+        xps = tuple(_input(shape, c, 41 + i, view and i == 0) for i, c in enumerate(cins))
+        ctot = sum(cins)
+        wp = rnd(3, 3, 2, ctot, co, seed=45, scale=(13.5 * ctot) ** -0.5).to("cuda", torch.bfloat16)
+        bp = rnd(co, seed=46, scale=0.1).to("cuda") if fused else None
+        before = direct_conv_cuda.conv3_packed_stripe.launches
+        got = direct_conv_cuda.conv3_packed_stripe(xps, wp, bp, leaky=fused, out_dtype=out_dtype)
+        ref = tdirect.conv3_packed_taps(xps, wp, bp, leaky=fused, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert direct_conv_cuda.conv3_packed_stripe.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        assert _rel(got, ref) < (1e-5 if out_dtype == torch.float32 else 0.01)
+
+    def test_stripe_kernel_refuses_what_it_cannot_take(self):
+        x = torch.zeros((1, 6, 6, 5, 128), dtype=torch.bfloat16, device="cuda")
+        wp = torch.zeros((3, 3, 2, 640, 128), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="at most 4 parts"):
+            direct_conv_cuda.conv3_packed_stripe((x,) * 5, wp)
+        with pytest.raises(TypeError, match="bf16"):
+            direct_conv_cuda.conv3_packed_stripe(x.float(), wp[:, :, :, :128].float())
+        x48 = torch.zeros((1, 6, 6, 5, 48), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="multiples of 32"):
+            direct_conv_cuda.conv3_packed_stripe(x48, wp[:, :, :, :48].contiguous())
+
+    @pytest.mark.parametrize("shape,view", [((1, 12, 20, 18), False), ((2, 13, 16, 21), True),
+                                            ((1, 9, 11, 7), True)])
+    @pytest.mark.parametrize("c2,f2", [(128, 128), (256, 128), (128, 256)])
+    @pytest.mark.parametrize("fused", [False, True])
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    def test_wino43_kernel_matches_plain(self, shape, view, c2, f2, fused, out_dtype):
+        xp = _input(shape, c2, 51, view)
+        w = rnd(3, 3, 3, c2 // 2, f2 // 2, seed=52, scale=(13.5 * c2) ** -0.5).to("cuda")
+        what = twino.transform_packed_w3_mixed(ts2d.pack_w3(w)).to(torch.bfloat16).contiguous()
+        b = rnd(f2 // 2, seed=53, scale=0.1).to("cuda") if fused else None
+        before = winograd43_cuda.conv3d_wino43_packed.launches
+        got = winograd43_cuda.conv3d_wino43_packed(xp, what, b, leaky=fused, out_dtype=out_dtype)
+        ref = twino.conv3_packed_wino43(xp, what, b, leaky=fused, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert winograd43_cuda.conv3d_wino43_packed.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        assert _rel(got, ref) < (1e-4 if out_dtype == torch.float32 else 0.08)
+
+    def test_conv_routes_on_the_card(self):
+        """The bench at a small shape: every route passes its gate and B3, B4,
+        B5 launch (B5 once per call, the others once per part)."""
+        from jax_nbody_emulator_with_dj_tpu_torch.experiments import conv_routes
+
+        for parts in (1, 2):
+            rows = conv_routes.run((12, 20, 16), parts, reps=1, emit=lambda line: None)
+            by = {r["route"]: r for r in rows}
+            assert all(r["ok"] and r["ms"] > 0 for r in rows)
+            assert by["B5"]["launches"] == 1
+            assert by["B3"]["launches"] == by["B4"]["launches"] == by["B1"]["launches"] == parts
 
 
 @pytest.mark.cuda

@@ -81,7 +81,7 @@ def _port_box(style, mid, box, wino=None, **cfg_kw):
                              dtype=torch.float32, output_dtype=torch.float32, wino=wino)
     emu = create_emulator(premodulate=True, compute_vel=False, params=params_from_jax(style),
                           premodulate_z=Z, premodulate_Om=OM, processor_config=cfg,
-                          mid_chan=mid)
+                          mid_chan=mid, device="cpu")
     return emu.process_box(box, Z, OM)
 
 
@@ -164,7 +164,7 @@ def test_core_apply_matches_jax(style4):
 def test_hierarchical_matches_model_forward(style4, box):
     """The port's runtime equals the port's own model on the wrap-padded box."""
     emu = create_emulator(premodulate=True, compute_vel=False, params=params_from_jax(style4),
-                          premodulate_z=Z, premodulate_Om=OM, mid_chan=4)
+                          premodulate_z=Z, premodulate_Om=OM, mid_chan=4, device="cpu")
     ref = emu.apply(_wrap_pad(torch.from_numpy(box)[None], 48), Z, OM)[0].numpy()
     np.testing.assert_allclose(_port_box(style4, 4, box), ref, rtol=2e-4, atol=2e-5)
 
@@ -317,8 +317,18 @@ def test_config_defaults_match_jax():
 def test_wino_default_follows_device(style4):
     cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8))
     tree = modulate_emulator_parameters(params_from_jax(style4), Z, OM)
-    proc = HierarchicalProcessor(NBodyEmulatorCore(mid_chan=4), tree, cfg)
+    model = NBodyEmulatorCore(mid_chan=4)
+    proc = HierarchicalProcessor(model, tree, cfg, device="cpu")
     assert proc.device.type == "cpu" and proc.wino is False
+    # No device named: the card, and no quiet step down to the CPU without one.
+    if torch.cuda.is_available():
+        assert HierarchicalProcessor(model, tree, cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            HierarchicalProcessor(model, tree, cfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_emulator(premodulate=True, compute_vel=False, params=params_from_jax(style4),
+                            premodulate_z=Z, premodulate_Om=OM, mid_chan=4)
 
 
 def _learned_vel_tree():
@@ -333,7 +343,7 @@ def _learned_vel_tree():
 ])
 def test_unported_emulators_raise(style4, kw, item):
     args = dict(premodulate=True, params=params_from_jax(style4), premodulate_z=Z,
-                premodulate_Om=OM, mid_chan=4)
+                premodulate_Om=OM, mid_chan=4, device="cpu")
     kw = {k: v() if callable(v) else v for k, v in kw.items()}
     with pytest.raises(NotImplementedError, match=item):
         create_emulator(**{**args, **kw})
@@ -344,7 +354,7 @@ def test_unported_runtime_options_raise(style4, kw):
     tree = modulate_emulator_parameters(params_from_jax(style4), Z, OM)
     cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8), **kw)
     with pytest.raises(NotImplementedError, match="A4"):
-        HierarchicalProcessor(NBodyEmulatorCore(mid_chan=4), tree, cfg)
+        HierarchicalProcessor(NBodyEmulatorCore(mid_chan=4), tree, cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

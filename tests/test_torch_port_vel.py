@@ -369,7 +369,7 @@ def padded_box(box):
 def core_vel4(style4, padded_box):
     """The port's own vel forward on the wrap-padded box (mid_chan=4)."""
     emu = create_emulator(premodulate=True, compute_vel=True, params=params_from_jax(style4),
-                          premodulate_z=Z, premodulate_Om=OM, mid_chan=4)
+                          premodulate_z=Z, premodulate_Om=OM, mid_chan=4, device="cpu")
     return emu.apply(padded_box, Z, OM)
 
 
@@ -413,7 +413,7 @@ def _port_box(style, mid, box, wino=None, **cfg_kw):
                              dtype=torch.float32, output_dtype=torch.float32, wino=wino)
     emu = create_emulator(premodulate=True, compute_vel=True, params=params_from_jax(style),
                           premodulate_z=Z, premodulate_Om=OM, processor_config=cfg,
-                          mid_chan=mid)
+                          mid_chan=mid, device="cpu")
     return emu.process_box(box, Z, OM)
 
 
