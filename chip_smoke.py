@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``jax_nbody_emulator_with_dj_tpu_torch/
 csrc`` (one ``nvcc`` per source, all started together): B1, the F(2,3)^2
-Winograd conv, and B2, its fused factored-tangent pair (``wino_f23.cu``); B4,
+Winograd conv, and B2, its fused factored-tangent pair (``wino_f23.cu``: wgmma, mbarrier rings,
+specialised warpgroups, a thread-block cluster for the pair); B4,
 the direct conv with a resident window, and B5, the direct conv streamed
 plane by plane over N parts (``direct_conv.cu``); B3, the mixed F(2,3) x
 F(4,3) Winograd conv (``wino_f43.cu``).  Holds each against its plain PyTorch
@@ -16,9 +17,9 @@ at full width through ``create_emulator``
 (mid_chan=64, 3 levels, bf16): the displacement model on a 128^3 box, and
 the displacement+velocity model on a 128^3 box (every pair site runs B2),
 each with the kernels on against the same box with them off, and one 256^3
-velocity box (whose phase 1 is wider than the pair kernel's _PAIR_W_MAX,
-so it also runs the two-B1 form).  16^3 boxes are held against the models'
-own forwards on the wrap-padded input.
+velocity box (whose phase 1 is wider than the JAX package's pair threshold:
+the port runs B2 there too, and B1 not at all).  16^3 boxes are held against
+the models' own forwards on the wrap-padded input.
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -111,64 +112,83 @@ def phase_build():
         m.build()
     seconds = round(time.perf_counter() - t0, 3)
     for m in mods:
-        ptxas = [ln.strip() for ln in _cuda_build.build_logs[m.SOURCE].splitlines()
+        # (no log when an earlier run left the library in _build/)
+        ptxas = [ln.strip() for ln in _cuda_build.build_logs.get(m.SOURCE, "").splitlines()
                  if "registers" in ln or "spill" in ln]
         log("build", source=CSRC + m.SOURCE, seconds_all=seconds, ptxas=ptxas)
 
 
 def phase_kernel():
-    """Kernel vs plain version, bf16, at main-path and ragged shapes."""
+    """Kernel B1 vs plain version at main-path shapes and at the shapes that
+    reach each of its code paths: ragged D, H, W, an odd count of row tiles,
+    F2 above 128 (more column blocks) and not a multiple of 64 (a ragged last
+    column tile), C2 = 256, a strided view, float32 out, weights passed
+    untiled (the wrapper tiles them) and tiled (as the model passes them)."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
     from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd import (
         conv3_packed_wino,
         transform_packed_w3,
     )
-    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda import conv3d_wino_packed
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda import (
+        conv3d_wino_packed,
+        tile_wh,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=dev) * 0.05
-    wh = transform_packed_w3(s2d.pack_w3(w)).to(torch.bfloat16).contiguous()
-    bias = torch.randn(64, generator=gen, device=dev) * 0.1
-    w_oidhw = s2d.oidhw_w3(s2d.pack_w3(w)).to(torch.bfloat16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    weights = {}
+
+    def weight(c2, f2):  # (wh, tiled wh, OIDHW packed kernel for the library conv)
+        if (c2, f2) not in weights:
+            w = torch.randn((3, 3, 3, c2 // 2, f2 // 2), generator=gen, device=dev) \
+                * (0.05 * (64 / c2) ** 0.5)
+            wh = transform_packed_w3(s2d.pack_w3(w)).to(bf16).contiguous()
+            weights[(c2, f2)] = wh, tile_wh(wh), s2d.oidhw_w3(s2d.pack_w3(w)).to(bf16)
+        return weights[(c2, f2)]
+
     cases = [
-        # (name, xp shape, bias, leaky, out dtype, timed)
-        ("phase3_entry_conv1", (1, 142, 142, 71, 128), True, False, torch.bfloat16, True),
-        ("phase3_entry_conv1", (1, 142, 142, 71, 128), True, True, torch.float32, False),
-        ("phase2a_conv_l1", (1, 68, 68, 34, 128), True, True, torch.bfloat16, True),
-        ("phase2a_conv_l1", (1, 68, 68, 34, 128), False, False, torch.float32, False),
+        # (name, xp shape, F2, bias, leaky, out dtype, timed, tiled weights, strided view)
+        ("phase3_entry_conv1", PHASE3, 128, True, False, bf16, True, True, False),
+        ("phase3_entry_conv1", PHASE3, 128, True, True, f32, False, False, False),
+        ("phase2a_conv_l1", PHASE2A, 128, True, True, bf16, True, True, False),
+        ("phase2a_conv_l1", PHASE2A, 128, False, False, f32, False, False, True),
+        ("decoder_conv0_256", (1, 36, 36, 18, 256), 256, True, True, bf16, False, True, False),
+        ("decoder_conv1_256", (1, 36, 36, 18, 256), 128, True, True, f32, False, True, True),
+        ("f2_192", (1, 20, 22, 12, 128), 192, True, True, bf16, False, True, False),
+        ("f2_192", (1, 20, 22, 12, 128), 192, False, False, f32, False, False, True),
+        ("f2_136_ragged_columns", RAGGED, 136, True, True, f32, False, True, True),
+        ("f2_136_ragged_columns", RAGGED, 136, True, False, bf16, False, False, False),
+        ("odd_tiles", (1, 9, 11, 7, 128), 128, True, True, f32, False, True, True),
+        ("odd_tiles_c256", (1, 9, 11, 7, 256), 136, True, True, bf16, False, True, False),
     ]
-    w2 = torch.randn((3, 3, 3, 128, 128), generator=gen, device=dev) * 0.03
-    wh2 = transform_packed_w3(s2d.pack_w3(w2)).to(torch.bfloat16).contiguous()
-    cases += [("decoder_conv0_256", (1, 36, 36, 18, 256), True, True, torch.bfloat16, False)]
-    cases += [("ragged", (2, 13, 16, 21, 128), b, lk, od, False)
-              for b in (True, False) for lk in (True, False)
-              for od in (torch.bfloat16, torch.float32)]
+    cases += [("ragged", RAGGED, 128, b, lk, od, False, od == bf16, lk)
+              for b in (True, False) for lk in (True, False) for od in (bf16, f32)]
     rows = []
-    for name, shape, use_b, leaky, od, timed in cases:
-        xp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        b = bias if use_b else None
-        wh_c = wh if shape[-1] == 128 else wh2
-        if shape[-1] != 128:
-            b = torch.randn(128, generator=gen, device=dev) * 0.1
-        got = conv3d_wino_packed(xp, wh_c, b, leaky=leaky, out_dtype=od)
-        ref = conv3_packed_wino(xp, wh_c, b, leaky=leaky, out_dtype=od)
+    for name, shape, f2, use_b, leaky, od, timed, tiled, view in cases:
+        xp = _rand_view(shape, gen, dev, view)
+        wh, wt, w_oidhw = weight(shape[-1], f2)
+        b = torch.randn(f2 // 2, generator=gen, device=dev) * 0.1 if use_b else None
+        got = conv3d_wino_packed(xp, wt if tiled else wh, b, leaky=leaky, out_dtype=od)
+        ref = conv3_packed_wino(xp, wh, b, leaky=leaky, out_dtype=od)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
             raise RuntimeError(f"{name}: bad kernel output {tuple(got.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
-        row = dict(case=name, shape=list(shape), bias=use_b, leaky=leaky,
-                   out=str(od).replace("torch.", ""), max_abs_err=err, rel_err=rel)
+        gate = GATE_PAIR_F32 if od == f32 else GATE_KERNEL  # float32: the summation order only
+        row = dict(case=name, shape=list(shape), f2=f2, bias=use_b, leaky=leaky,
+                   out=str(od).replace("torch.", ""), tiled_weights=tiled, strided_view=view,
+                   max_abs_err=err, rel_err=rel, gate=gate)
         if timed:
-            row["ms"] = cuda_ms(lambda: conv3d_wino_packed(xp, wh, b, leaky=leaky, out_dtype=od))
+            row["ms"] = cuda_ms(lambda: conv3d_wino_packed(xp, wt, b, leaky=leaky, out_dtype=od))
             row["plain_ms"] = cuda_ms(lambda: conv3_packed_wino(xp, wh, b, leaky=leaky, out_dtype=od))
             # the direct packed conv (cuDNN) that the path runs with wino=False
             row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
             row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B1", shape[1:4])
         log("kernel", **row)
-        if not rel < GATE_KERNEL:
-            raise RuntimeError(f"{name}: kernel vs plain rel error {rel} >= {GATE_KERNEL}")
+        if not rel < gate:
+            raise RuntimeError(f"{name}: kernel vs plain rel error {rel} >= {gate}")
         rows.append(row)
         del xp, got, ref
     torch.cuda.empty_cache()
@@ -192,9 +212,11 @@ def _pair_errors(got, ref, fp32):
 
 
 def phase_pair_kernel():
-    """Kernel B2 vs its plain version at the main path's pair shapes and
-    ragged ones; timed against the plain version and against the two-singles
-    form (two B1 launches + a torch epilogue) that runs above _PAIR_W_MAX."""
+    """Kernel B2 vs its plain version at the main path's pair shapes, ragged
+    ones, and the shapes of B1's phase that reach the kernel's other code
+    paths; timed against the plain version, the two-singles form (two B1
+    launches + a torch epilogue, what the JAX package runs above a packed-W
+    width of 96) and the library form (two cuDNN convs + that epilogue)."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
     from jax_nbody_emulator_with_dj_tpu_torch.ops.conv3d import leaky_relu_with_tangent
     from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd import (
@@ -204,13 +226,14 @@ def phase_pair_kernel():
     from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda import (
         conv3d_wino_packed,
         conv3d_wino_pair_packed,
+        tile_wh,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     whs, packed = {}, {}
-    for ci, co in ((64, 64), (64, 128), (128, 64), (128, 128)):
+    for ci, co in ((64, 64), (64, 128), (128, 64), (128, 128), (64, 96), (64, 68), (128, 68)):
         w = torch.randn((3, 3, 3, ci, co), generator=gen, device=dev) / (27 * ci) ** 0.5
         packed[(2 * ci, 2 * co)] = s2d.pack_w3(w).to(bf16)
         whs[(2 * ci, 2 * co)] = transform_packed_w3(s2d.pack_w3(w)).to(bf16).contiguous()
@@ -221,8 +244,15 @@ def phase_pair_kernel():
         ("phase2a_conv_l1", (1, 68, 68, 34, 128), 128, True, True, bf16, True, False),
         ("decoder_conv0_part", (1, 36, 36, 18, 128), 256, False, False, bf16, True, False),
         ("decoder_conv1", (1, 36, 36, 18, 256), 128, True, False, bf16, True, False),
-        # 256^3 phase 1: owp 129 > _PAIR_W_MAX, where the path runs the two singles
+        # 256^3 phase 1: owp 129, above the JAX package's threshold for the pair kernel
         ("phase1_256_conv_l01", (1, 36, 260, 130, 128), 128, True, True, bf16, True, False),
+        ("phase1_256_conv_l01", (1, 36, 260, 130, 128), 128, True, True, f32, False, True),
+        ("f2_192", (1, 20, 22, 12, 128), 192, True, True, bf16, False, True),
+        ("f2_192", (1, 20, 22, 12, 128), 192, False, False, f32, False, False),
+        ("f2_136_ragged_columns", RAGGED, 136, True, True, f32, False, True),
+        ("f2_136_ragged_columns", RAGGED, 136, True, False, bf16, False, False),
+        ("odd_tiles", (1, 9, 11, 7, 128), 128, True, True, f32, False, True),
+        ("odd_tiles_c256", (1, 9, 11, 7, 256), 136, True, True, bf16, False, True),
     ]
     cases += [("ragged", (2, 13, 16, 21, 128), f2, bc, lk, od, False, view)
               for f2, bc, lk, od, view in (
@@ -235,12 +265,9 @@ def phase_pair_kernel():
     for name, shape, f2, use_bc, leaky, od, timed, view in cases:
         c2 = shape[-1]
         wh = whs[(c2, f2)]
-        if view:  # xp as a window of a larger (padded) buffer, as the runtime reads it
-            b, d, h, wp, _ = shape
-            big = torch.randn((b, d + 3, h + 2, wp + 5, c2), generator=gen, device=dev).to(bf16)
-            xp = big[:, 2:2 + d, 1:1 + h, 3:3 + wp]
-        else:
-            xp = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        wt = tile_wh(wh)  # timed as the model passes them; checked as given (tiled by the wrapper)
+        # xp as a window of a larger (padded) buffer, as the runtime reads it; sp contiguous
+        xp = _rand_view(shape, gen, dev, view)
         sp = torch.randn(shape, generator=gen, device=dev).to(bf16)
         bias = torch.randn(f2 // 2, generator=gen, device=dev) * 0.1 if use_bc else None
         c = torch.randn(f2, generator=gen, device=dev) * 0.3 if use_bc else None
@@ -257,13 +284,13 @@ def phase_pair_kernel():
             bp = s2d.pack_bias(bias) if use_bc else None
 
             def singles():
-                z = conv3d_wino_packed(xp, wh, out_dtype=od)
-                zt = conv3d_wino_packed(sp, wh, out_dtype=od)
+                z = conv3d_wino_packed(xp, wt, out_dtype=od)
+                zt = conv3d_wino_packed(sp, wt, out_dtype=od)
                 y = z if bp is None else z + bp.to(z.dtype)
                 dy = zt if c is None else zt - c.to(z.dtype) * z
                 return leaky_relu_with_tangent(y, dy) if leaky else (y, dy)
 
-            row["ms"] = cuda_ms(lambda: conv3d_wino_pair_packed(xp, sp, wh, bias, c, leaky=leaky,
+            row["ms"] = cuda_ms(lambda: conv3d_wino_pair_packed(xp, sp, wt, bias, c, leaky=leaky,
                                                                 out_dtype=od))
             row["plain_ms"] = cuda_ms(lambda: conv3_packed_wino_pair(xp, sp, wh, bias, c,
                                                                      leaky=leaky, out_dtype=od))
@@ -597,8 +624,7 @@ def phase_slice(vel):
     """A main path at full width: 128^3, mid_chan=64, bf16, kernels on and off.
 
     Returns the kernel launch counts of the kernels-on run.  The disp path
-    runs B1 at every Winograd site; the vel path runs B2 at every pair site
-    (at 128^3 every packed-W output width is <= _PAIR_W_MAX, so not B1)."""
+    runs B1 at every Winograd site; the vel path runs B2 at every pair site."""
     n = 128
     on, launches = _timed_box(vel, n, None, slab=32, tile=(n,) * 3)  # None: on for CUDA
     off, launches_off = _timed_box(vel, n, False, slab=32, tile=(n,) * 3)
@@ -620,11 +646,11 @@ def phase_slice(vel):
 
 def phase_vel_256():
     """One 256^3 velocity box: phase 1's packed-W output width (130) is above
-    _PAIR_W_MAX, so B1 runs there (two launches per pair site); the other
-    phases run B2."""
+    the JAX package's threshold for its pair kernel; the port has none, so
+    every pair site runs B2 and B1 is not launched."""
     _, launches = _timed_box(True, 256, None, runs=1, slab=32, tile=(128,) * 3)
-    if launches["B1"] <= 0 or launches["B2"] <= 0:
-        raise RuntimeError(f"256^3 vel box: a kernel was launched 0 times: {launches}")
+    if launches["B1"] != 0 or launches["B2"] <= 0:
+        raise RuntimeError(f"256^3 vel box: expected B2 at every pair site and no B1: {launches}")
 
 
 def _kernel_entry(name, source, replaces, launches, rows):

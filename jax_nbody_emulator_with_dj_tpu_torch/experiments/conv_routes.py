@@ -54,7 +54,7 @@ from ..ops.direct_conv import conv3_packed_taps
 from ..ops.direct_conv_cuda import conv3_packed_stripe, conv3d_direct_packed
 from ..ops.winograd import transform_packed_w3, transform_packed_w3_mixed
 from ..ops.winograd43_cuda import conv3d_wino43_packed
-from ..ops.winograd_cuda import conv3d_wino_packed
+from ..ops.winograd_cuda import conv3d_wino_packed, tile_wh
 
 CHAN = 64                 # unpacked channels per part and out: the model's mid_chan
 SHAPES = ((142, 142, 71), (136, 264, 132))  # narrow phase-3 and wide phase-1 inputs (D, H, WP)
@@ -140,7 +140,8 @@ def build_routes(xs, w, bias):
     w_oidhw = s2d.oidhw_w3(wp)
     c2 = 2 * CHAN
     wps = [wp[:, :, :, i * c2:(i + 1) * c2].contiguous() for i in range(parts)]
-    whs = [transform_packed_w3(wi.float()).to(bf16).contiguous() for wi in wps]
+    # tiled once, as the model does when it packs its weights
+    whs = [tile_wh(transform_packed_w3(wi.float()).to(bf16)) for wi in wps]
     whats = [transform_packed_w3_mixed(wi.float()).to(bf16).contiguous() for wi in wps]
 
     def per_part(conv, weights):

@@ -34,7 +34,7 @@ from ..ops.conv3d import (
 )
 from ..ops.style import recover_dweight_factors
 from ..ops.winograd import transform_packed_w3
-from ..ops.winograd_cuda import conv3d_wino_packed, conv3d_wino_pair_packed
+from ..ops.winograd_cuda import conv3d_wino_packed, conv3d_wino_pair_packed, tile_wh
 
 _KSIZE = {"conv": 3, "skip": 1, "down": 2, "up": 2}  # 'C', skip, 'D', 'U'
 
@@ -235,9 +235,10 @@ def apply_resample_block_vel(p, x, dx, seq):
 # Activations stay W-packed ((B, D, H, W/2, 2C), ops/s2d.py) across whole
 # phases.  Weights are packed ONCE per processor build, already in the
 # compute dtype and on the device: 3x3x3 kernels in torch's OIDHW layout,
-# Winograd kernels ("wh") in bf16, and the per-part weights of the decoder's
-# concat inputs split into contiguous tensors.  Velocity layers run the
-# FACTORED tangent: a style-folded dweight has the rank structure
+# Winograd kernels ("wh") in bf16, re-tiled into the pieces kernels B1 and B2
+# read (ops/winograd_cuda.py::tile_wh), and the per-part weights of the
+# decoder's concat inputs split into contiguous tensors.  Velocity layers run
+# the FACTORED tangent: a style-folded dweight has the rank structure
 # dW = W (.) g_in - W (.) c_out, so dy = op(x (.) g + dx, W) - c (.) op(x, W),
 # one conv sharing the primal kernel (kernel B2 at the Winograd sites).
 # ---------------------------------------------------------------------------
@@ -283,8 +284,9 @@ def pack_conv_layer_params(p, kind, *, groups: int = 1, vel: bool = False,
     """Pre-pack one premodulated conv layer for packed execution.
 
     Returns ``{"w", "b"}`` (plus ``"wh"`` for Winograd-eligible convs when
-    ``wino``); with ``groups > 1`` the weights are the list of per-part
-    operands of the implicit concat input instead.  With ``vel``, also the
+    ``wino``: the transformed weights re-tiled into the kernels' pieces,
+    ``ops/winograd_cuda.py::TiledWh``); with ``groups > 1`` the weights are
+    the list of per-part operands of the implicit concat input instead.  With ``vel``, also the
     tangent's rank factors: ``"g"`` unpacked (Ci,) and ``"c"`` packed (2Co,),
     float32, from the fold's ``dfac_in``/``dfac_out`` or recovered from
     ``dweight``.
@@ -301,7 +303,7 @@ def pack_conv_layer_params(p, kind, *, groups: int = 1, vel: bool = False,
         "b": dev(s2d.pack_bias(p["bias"].float()), torch.float32),
     }
     if wino and _wino_eligible(kind, wp):
-        wh = [dev(t, torch.bfloat16)
+        wh = [tile_wh(dev(t, torch.bfloat16))
               for t in _cat_weight_parts(transform_packed_w3(wp), kind, groups)]
         out["wh"] = wh[0] if groups == 1 else wh
     if vel:
@@ -359,24 +361,12 @@ def _wino_conv(xp, wh, bias=None, leaky=False):
     return y.to(cast_back) if cast_back is not None else y
 
 
-# Packed-W output width (owp) above which the factored-tangent pair runs as two
-# single-kernel launches and an elementwise epilogue instead of the fused pair
-# kernel: the JAX package's threshold, kept as it is (on the H100 both sides
-# are measured in PERF.md; choosing it is ROADMAP item A1).
-_PAIR_W_MAX = 96
-
-
 def _wino_conv_pair(xp, sp, wh, bias, cvec, act):
     """Factored-tangent pair: y = conv(xp, W) + b, dy = conv(sp, W) - c (.)
-    conv(xp, W), the LeakyReLU pair when ``act``.  Kernel B2 up to
-    ``_PAIR_W_MAX``; above it two B1 launches, whose c-fold runs on the
-    rounded outputs, as in the JAX package."""
-    if xp.shape[3] - 1 > _PAIR_W_MAX:
-        z = _wino_conv(xp, wh)
-        zt = _wino_conv(sp, wh)
-        y = z if bias is None else z + bias.to(z.dtype)
-        dy = zt if cvec is None else zt - cvec.to(z.dtype) * z
-        return leaky_relu_with_tangent(y, dy) if act else (y, dy)
+    conv(xp, W), the LeakyReLU pair when ``act``: kernel B2 at every packed-W
+    width (the JAX package runs two single kernels above a width of 96; here
+    the pair's cost does not depend on the width, and the c-fold always sees
+    the float32 accumulators)."""
     out_dtype, cast_back = _wino_dtypes(xp.dtype)
     y, dy = conv3d_wino_pair_packed(xp.to(torch.bfloat16), sp.to(torch.bfloat16), wh, bias,
                                     cvec, leaky=act, out_dtype=out_dtype)

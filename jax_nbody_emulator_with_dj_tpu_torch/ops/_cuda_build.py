@@ -38,13 +38,17 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build(name: str) -> ctypes.CDLL:
+def build(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<name>`` (once per version of it, of the ``*.cuh``
-    headers beside it and of the flags) and load the shared library."""
-    if name in _libs:
-        return _libs[name]
+    headers beside it and of the flags) and load the shared library.
+    ``defines`` are ``NAME=value`` macros for an experiment's build of the
+    source; each set is a library of its own."""
+    key = " ".join((name, *defines))
+    if key in _libs:
+        return _libs[key]
     source = CSRC / name
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     so = BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
@@ -52,15 +56,15 @@ def build(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
+            [_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
-        build_logs[name] = proc.stdout + proc.stderr
+        build_logs[key] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name}:\n{build_logs[name]}")
+            raise RuntimeError(f"nvcc failed to build {key}:\n{build_logs[key]}")
         os.replace(tmp, so)
-    _libs[name] = ctypes.CDLL(str(so))
-    return _libs[name]
+    _libs[key] = ctypes.CDLL(str(so))
+    return _libs[key]
 
 
 def build_all(names) -> None:

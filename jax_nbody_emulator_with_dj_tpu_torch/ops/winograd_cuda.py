@@ -3,11 +3,27 @@
 Replace two kernels of ``jax_nbody_emulator_with_dj_tpu/ops/winograd_pallas.py``:
 ``conv3d_wino_pallas_packed`` (B1, ``conv3d_wino_packed`` here) and
 ``conv3d_wino_pallas_pair_packed`` (B2, ``conv3d_wino_pair_packed``).  Both
-are CUDA C++ for ``sm_90a`` in one source (``csrc/wino_f23.cu``; its header
-says what bounds them and why they are built the way they are).  It is
+are one CUDA C++ kernel for ``sm_90a`` (``csrc/wino_f23.cu``; its header says
+what bounds them and why they are built the way they are): blocks that stay
+on their SMs and walk over patches of 2 x 4 Winograd tiles x 8 cells,
+``wgmma`` from shared memory in two consumer warpgroups, a producer
+warpgroup that loads and transforms the input, a weight ring filled by bulk
+asynchronous copies on mbarriers, registers rebalanced with ``setmaxnreg``.
+B2 is that kernel over thread-block clusters of two, whose blocks take x and
+s of one patch, share one multicast weight stream and exchange float32
+accumulators through distributed shared memory.  The kernels need a card of
+compute capability 9.0 (``wgmma``, clusters; launched with
+``cudaLaunchKernelEx``) and ~221 KB of shared memory a block.  The source is
 compiled with ``nvcc`` into a shared library with a plain C interface the
 first time a CUDA tensor reaches a kernel (``ops/_cuda_build.py``), and bound
 with ``ctypes``.
+
+The kernel reads its weights as 8 KB pieces, one per (column block, channel
+group, point, tap), each laid out as ``wgmma`` reads it.  ``tile_wh`` makes
+them from ``transform_packed_w3``'s (4, 4, 2, C2, F2) output (a permutation,
+plus zero columns up to a multiple of 128); the model does that once when it
+packs its weights (``models/blocks.py``), and a caller that passes the
+(4, 4, 2, C2, F2) tensor has it done on every call.
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain PyTorch
 version (``ops/winograd.py::conv3_packed_wino``, ``conv3_packed_wino_pair``),
@@ -25,16 +41,68 @@ from . import _cuda_build
 from .winograd import _vec, conv3_packed_wino, conv3_packed_wino_pair
 
 SOURCE = "wino_f23.cu"
+TILE_N = 128  # output channels of a weight piece (the kernel's column block)
+TILE_C = 32  # input channels of a weight piece (the kernel's channel group)
+
+
+class TiledWh:
+    """Transformed weights in the kernel's layout.
+
+    ``tiles`` is (NB, G, 16, 2, 4, 128, 8): column block, channel group,
+    point u*4+v, packed-W tap, 8-channel step, output channel, channel; element
+    ``[nb, g, p, t, q, f, e]`` is ``wh[p // 4, p % 4, t, 32 g + 8 q + e,
+    128 nb + f]``, zero past ``f2``.  ``shape``, ``dtype`` and ``device``
+    describe the (4, 4, 2, C2, F2) tensor it stands for.
+    """
+
+    __slots__ = ("tiles", "f2")
+
+    def __init__(self, tiles, f2: int):
+        if tiles.dim() != 7 or tuple(tiles.shape[2:]) != (16, 2, TILE_C // 8, TILE_N, 8) \
+                or not 0 < f2 <= tiles.shape[0] * TILE_N:
+            raise ValueError(f"not tiled Winograd weights: {tuple(tiles.shape)}, F2 = {f2}")
+        self.tiles, self.f2 = tiles, f2
+
+    @property
+    def shape(self):
+        return torch.Size((4, 4, 2, self.tiles.shape[1] * TILE_C, self.f2))
+
+    dtype = property(lambda self: self.tiles.dtype)
+    device = property(lambda self: self.tiles.device)
+
+    def dim(self):
+        return 5
+
+    def is_contiguous(self):
+        return self.tiles.is_contiguous()
+
+    def data_ptr(self):
+        return self.tiles.data_ptr()
+
+    def untiled(self):
+        """The (4, 4, 2, C2, F2) tensor, bit for bit."""
+        nb, g = self.tiles.shape[:2]
+        wh = self.tiles.permute(2, 3, 1, 4, 6, 0, 5).reshape(4, 4, 2, g * TILE_C, nb * TILE_N)
+        return wh[..., :self.f2].contiguous()
+
+
+def tile_wh(wh) -> TiledWh:
+    """(4, 4, 2, C2, F2) from ``transform_packed_w3`` -> the kernel's pieces."""
+    if isinstance(wh, TiledWh):
+        return wh
+    if wh.dim() != 5 or tuple(wh.shape[:3]) != (4, 4, 2) or wh.shape[3] % TILE_C:
+        raise ValueError(f"wh must be (4, 4, 2, C2 % {TILE_C} == 0, F2), got {tuple(wh.shape)}")
+    c2, f2 = wh.shape[3:]
+    nb = -(-f2 // TILE_N)
+    padded = torch.nn.functional.pad(wh, (0, nb * TILE_N - f2))
+    t = padded.reshape(16, 2, c2 // TILE_C, TILE_C // 8, 8, nb, TILE_N)
+    return TiledWh(t.permute(5, 2, 0, 1, 3, 6, 4).contiguous(), f2)
 
 _lib = None
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/wino_f23.cu`` (once per version of the source) and bind it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _cuda_build.build(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the two entry points' argument types on a build of the source."""
     fn = lib.wino_f23_packed
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
@@ -47,8 +115,15 @@ def build() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/wino_f23.cu`` (once per version of the source) and bind it."""
+    global _lib
+    if _lib is None:
+        _lib = bind(_cuda_build.build(SOURCE))
+    return _lib
 
 
 def _check(xp, wh, out_dtype, points=(4, 4)):
@@ -75,6 +150,10 @@ def _check(xp, wh, out_dtype, points=(4, 4)):
         raise ValueError(f"xp {tuple(xp.shape)} is smaller than the 3x3x2 window")
 
 
+def _untiled(wh):
+    return wh.untiled() if isinstance(wh, TiledWh) else wh
+
+
 def _vec_arg(v, f2, device, name):
     """A (F2/2,) or (F2,) float32 vector (None: zeros) as a contiguous (F2,) on ``device``."""
     if v is None:
@@ -89,14 +168,15 @@ def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None
 
     Args:
         xp: packed input; bf16 on CUDA.  Any strides with contiguous channels.
-        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``; bf16 on CUDA.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``, or ``tile_wh`` of it;
+            bf16 on CUDA.
         bias: (F2/2,) or (F2,) float32 bias, or None.
         leaky: fuse LeakyReLU(0.01).
         out_dtype: bf16 or float32 (default: xp's dtype).
     """
     out_dtype = out_dtype or xp.dtype
     if xp.device.type == "cpu":
-        return conv3_packed_wino(xp, wh, bias, leaky=leaky, out_dtype=out_dtype)
+        return conv3_packed_wino(xp, _untiled(wh), bias, leaky=leaky, out_dtype=out_dtype)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     _check(xp, wh, out_dtype)
@@ -104,10 +184,11 @@ def conv3d_wino_packed(xp, wh, bias=None, *, leaky: bool = False, out_dtype=None
     f2 = wh.shape[-1]
     bias = _vec_arg(bias, f2, xp.device, "bias")
     lib = build()
+    wt = tile_wh(wh)
     y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.wino_f23_packed(
-        xp.data_ptr(), wh.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        xp.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(),
         *xp.stride()[:4], b, d, h, wp, c2, f2, int(leaky),
         int(out_dtype == torch.float32), stream,
     )
@@ -129,7 +210,8 @@ def conv3d_wino_pair_packed(xp, sp, wh, bias=None, c=None, *, leaky: bool = Fals
     Args:
         xp, sp: packed inputs of one shape (B, D, H, WP, C2); bf16 on CUDA.
             Each may have any strides with contiguous channels.
-        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``; bf16 on CUDA.
+        wh: (4, 4, 2, C2, F2) from ``transform_packed_w3``, or ``tile_wh`` of it;
+            bf16 on CUDA.
         bias, c: (F2/2,) or (F2,) float32, or None for zeros.
         leaky: fuse the LeakyReLU(0.01) pair.
         out_dtype: bf16 or float32 (default: xp's dtype).
@@ -137,7 +219,8 @@ def conv3d_wino_pair_packed(xp, sp, wh, bias=None, c=None, *, leaky: bool = Fals
     """
     out_dtype = out_dtype or xp.dtype
     if xp.device.type == "cpu":
-        return conv3_packed_wino_pair(xp, sp, wh, bias, c, leaky=leaky, out_dtype=out_dtype)
+        return conv3_packed_wino_pair(xp, sp, _untiled(wh), bias, c, leaky=leaky,
+                                      out_dtype=out_dtype)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     if sp.shape != xp.shape or sp.device != xp.device:
@@ -149,11 +232,12 @@ def conv3d_wino_pair_packed(xp, sp, wh, bias=None, c=None, *, leaky: bool = Fals
     bias = _vec_arg(bias, f2, xp.device, "bias")
     c = _vec_arg(c, f2, xp.device, "c")
     lib = build()
+    wt = tile_wh(wh)
     y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
     dy = torch.empty_like(y)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.wino_f23_pair_packed(
-        xp.data_ptr(), sp.data_ptr(), wh.data_ptr(), bias.data_ptr(), c.data_ptr(),
+        xp.data_ptr(), sp.data_ptr(), wt.data_ptr(), bias.data_ptr(), c.data_ptr(),
         y.data_ptr(), dy.data_ptr(), *xp.stride()[:4], *sp.stride()[:4],
         b, d, h, wp, c2, f2, int(leaky), int(out_dtype == torch.float32), stream,
     )

@@ -219,6 +219,59 @@ class TestCudaKernel:
         dy_err = torch.where(agree, (dy - dy_ref).abs(), torch.zeros_like(dy)).max()
         assert dy_err / dy_ref.abs().max() < gate
 
+    # The shapes that reach the redesigned kernel's other code paths: an odd
+    # count of 64-row tiles (a lone last block), F2 above 128 (a second column
+    # block) and not a multiple of 64 (a ragged last column tile), C2 = 256, x a
+    # strided view beside a contiguous s, float32 out, the wide phase-1 pair
+    # site of a 256^3 box (small D, H), weights tiled beforehand or by the wrapper.
+    NEW_SHAPES = [
+        ((1, 9, 11, 7), 128, 128, True),       # 140 flat rows: 3 tiles
+        ((1, 9, 11, 7), 256, 136, False),
+        ((1, 20, 22, 12), 128, 192, True),
+        ((2, 13, 16, 21), 128, 136, True),
+        ((2, 13, 16, 21), 256, 256, False),
+        ((1, 6, 8, 130), 128, 128, True),      # packed-W width 129
+    ]
+
+    @pytest.mark.parametrize("shape,c2,f2,view", NEW_SHAPES)
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("tiled", [False, True])
+    def test_kernel_new_shapes(self, shape, c2, f2, view, out_dtype, tiled):
+        xp = _input(shape, c2, 31, view)
+        w = rnd(3, 3, 3, c2 // 2, f2 // 2, seed=32, scale=(13.5 * c2) ** -0.5).to("cuda")
+        wh = twino.transform_packed_w3(ts2d.pack_w3(w)).to(torch.bfloat16).contiguous()
+        b = rnd(f2 // 2, seed=33, scale=0.1).to("cuda")
+        got = winograd_cuda.conv3d_wino_packed(
+            xp, winograd_cuda.tile_wh(wh) if tiled else wh, b, leaky=True, out_dtype=out_dtype)
+        ref = twino.conv3_packed_wino(xp, wh, b, leaky=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        assert _rel(got, ref) < (1e-5 if out_dtype == torch.float32 else 0.01)
+
+    @pytest.mark.parametrize("shape,c2,f2,view", NEW_SHAPES)
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("tiled", [False, True])
+    def test_pair_kernel_new_shapes(self, shape, c2, f2, view, out_dtype, tiled):
+        xp = _input(shape, c2, 41, view)  # a view when ``view``; sp always contiguous
+        sp = _input(shape, c2, 42, False)
+        w = rnd(3, 3, 3, c2 // 2, f2 // 2, seed=43, scale=(13.5 * c2) ** -0.5).to("cuda")
+        wh = twino.transform_packed_w3(ts2d.pack_w3(w)).to(torch.bfloat16).contiguous()
+        b = rnd(f2 // 2, seed=44, scale=0.1).to("cuda")
+        c = rnd(f2, seed=45, scale=0.3).to("cuda")
+        got = winograd_cuda.conv3d_wino_pair_packed(
+            xp, sp, winograd_cuda.tile_wh(wh) if tiled else wh, b, c, leaky=True,
+            out_dtype=out_dtype)
+        ref = twino.conv3_packed_wino_pair(xp, sp, wh, b, c, leaky=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        (y, dy), (y_ref, dy_ref) = [(t[0].float(), t[1].float()) for t in (got, ref)]
+        assert got[0].dtype == got[1].dtype == out_dtype and y.shape == y_ref.shape
+        gate = 1e-5 if out_dtype == torch.float32 else 0.01
+        assert (y - y_ref).abs().max() / y_ref.abs().max() < gate
+        agree = (y > 0) == (y_ref > 0)
+        assert (~agree).sum().item() <= max(1, 1e-4 * agree.numel())
+        dy_err = torch.where(agree, (dy - dy_ref).abs(), torch.zeros_like(dy)).max()
+        assert dy_err / dy_ref.abs().max() < gate
+
     def test_vel_processor_runs_the_pair_kernel(self):
         """A 16^3 velocity box at mid_chan=64 on the card: the pair sites launch
         B2, and the box agrees with the run that has the kernels off."""
