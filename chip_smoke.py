@@ -6,9 +6,10 @@ Builds the port's CUDA kernels from ``jax_nbody_emulator_with_dj_tpu_torch/
 csrc`` (one ``nvcc`` per source, all started together): B1, the F(2,3)^2
 Winograd conv, and B2, its fused factored-tangent pair (``wino_f23.cu``: wgmma, mbarrier rings,
 specialised warpgroups, a thread-block cluster for the pair); B4,
-the direct conv with a resident window, and B5, the direct conv streamed
-plane by plane over N parts (``direct_conv.cu``); B3, the mixed F(2,3) x
-F(4,3) Winograd conv (``wino_f43.cu``).  Holds each against its plain PyTorch
+the direct conv with a resident window (``direct_conv.cu``); B5, the direct
+conv streamed plane by plane over N parts (``stripe_conv.cu``), and B3, the
+mixed F(2,3) x F(4,3) Winograd conv (``wino_f43.cu``), both on wgmma with
+mbarrier weight rings and specialised warpgroups.  Holds each against its plain PyTorch
 version at the shapes its path gives it, drives the conv-route bench
 (``experiments/conv_routes.py``, the path of B3, B4 and B5) at full width at
 both of its default shapes and with two parts, then drives both model paths
@@ -105,17 +106,19 @@ def phase_build():
         winograd_cuda,
     )
 
-    mods = (winograd_cuda, direct_conv_cuda, winograd43_cuda)
+    sources = (winograd_cuda.SOURCE, direct_conv_cuda.SOURCE, direct_conv_cuda.STRIPE_SOURCE,
+               winograd43_cuda.SOURCE)
     t0 = time.perf_counter()
-    _cuda_build.build_all(m.SOURCE for m in mods)
-    for m in mods:
-        m.build()
+    _cuda_build.build_all(sources)
+    for bind in (winograd_cuda.build, direct_conv_cuda.build, direct_conv_cuda.build_stripe,
+                 winograd43_cuda.build):
+        bind()
     seconds = round(time.perf_counter() - t0, 3)
-    for m in mods:
+    for source in sources:
         # (no log when an earlier run left the library in _build/)
-        ptxas = [ln.strip() for ln in _cuda_build.build_logs.get(m.SOURCE, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log("build", source=CSRC + m.SOURCE, seconds_all=seconds, ptxas=ptxas)
+        ptxas = [ln.strip() for ln in _cuda_build.build_logs.get(source, "").splitlines()
+                 if "Used" in ln or "spill" in ln]
+        log("build", source=CSRC + source, seconds_all=seconds, ptxas=ptxas)
 
 
 def phase_kernel():
@@ -395,10 +398,18 @@ def phase_direct_kernel():
 
 def phase_stripe_kernel():
     """Kernel B5 (direct conv, plane-streamed, N parts) vs its plain version:
-    one, two and three parts, a non-square kernel, bf16 and float32 out."""
+    one to four parts, a non-square kernel, bf16 and float32 out, and the
+    shapes that reach each of its code paths: an output of one patch, ragged
+    D, H and W with an odd count of patches, Co of 72, 136, 192 and 256 (a
+    ragged last column tile, a second column block), 256, 320 and 512 input
+    channels (two consumer warpgroups, and one with an accumulator set per
+    kd), strided views, weights tiled beforehand or by the wrapper."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
     from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv import conv3_packed_taps
-    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import conv3_packed_stripe
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import (
+        conv3_packed_stripe,
+        tile_wp,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -407,6 +418,7 @@ def phase_stripe_kernel():
         ("phase3_conv", PHASE3, (128,), 128, True, True, bf16, True, False),
         ("phase3_conv", PHASE3, (128,), 128, False, False, f32, False, False),
         ("phase2a_conv", PHASE2A, (128,), 128, True, True, bf16, True, False),
+        ("phase3_two_parts", PHASE3, (128, 128), 128, True, True, bf16, True, False),
         ("decoder_concat_conv0", (1, 36, 36, 18, 128), (128, 128), 256, True, True, bf16, True,
          False),
         ("decoder_concat_conv0", (1, 36, 36, 18, 128), (128, 128), 256, True, False, f32, False,
@@ -415,6 +427,16 @@ def phase_stripe_kernel():
         ("three_parts", (1, 20, 22, 12, 128), (128, 128, 128), 128, False, False, f32, False, True),
         ("four_unequal_parts", (2, 9, 11, 10, 0), (32, 64, 128, 96), 72, True, True, f32, False,
          False),
+        ("four_unequal_parts", (2, 9, 11, 10, 0), (32, 64, 128, 96), 72, True, True, bf16, False,
+         True),
+        ("one_patch", (1, 3, 10, 9, 0), (128,), 128, True, True, f32, False, True),
+        ("one_patch_c512", (1, 3, 10, 9, 0), (256, 256), 136, True, True, bf16, False, False),
+        ("c512_co136", (1, 7, 19, 12, 0), (256, 256), 136, True, True, f32, False, True),
+        ("c512_co256", (2, 13, 16, 21, 0), (128, 128, 128, 128), 256, False, False, bf16, False,
+         False),
+        ("co192", (1, 20, 22, 12, 0), (128,), 192, True, True, bf16, False, True),
+        ("co192", (1, 20, 22, 12, 0), (128,), 192, True, False, f32, False, False),
+        ("odd_patches_c256", (1, 9, 11, 7, 0), (256,), 136, True, True, f32, False, True),
     ]
     cases += [("ragged", RAGGED, cins, 128, bb, lk, od, False, view)
               for cins, bb, lk, od, view in (
@@ -422,20 +444,22 @@ def phase_stripe_kernel():
                   ((128, 128), True, True, f32, True), ((128, 128), False, True, bf16, False),
                   ((64, 128), True, False, f32, False))]
     rows = []
-    for name, shape, cins, co, use_b, leaky, od, timed, view in cases:
+    for n, (name, shape, cins, co, use_b, leaky, od, timed, view) in enumerate(cases):
         xps = tuple(_rand_view(shape[:4] + (c,), gen, dev, view and i == 0)
                     for i, c in enumerate(cins))
         ctot = sum(cins)
         wp = (torch.randn((3, 3, 2, ctot, co), generator=gen, device=dev)
               / (13.5 * ctot) ** 0.5).to(bf16)
+        wt = tile_wp(wp)  # timed as tiled once; checked tiled beforehand or by the wrapper, in turns
+        tiled = n % 2 == 0
         bp = torch.randn(co, generator=gen, device=dev) * 0.1 if use_b else None
-        got = conv3_packed_stripe(xps, wp, bp, leaky=leaky, out_dtype=od)
+        got = conv3_packed_stripe(xps, wt if tiled else wp, bp, leaky=leaky, out_dtype=od)
         ref = conv3_packed_taps(xps, wp, bp, leaky=leaky, out_dtype=od)
         row = dict(shape=list(shape[:4]), cins=list(cins), co=co, bias=use_b, leaky=leaky,
-                   out=str(od).replace("torch.", ""), strided_view=view)
+                   out=str(od).replace("torch.", ""), strided_view=view, tiled_weights=tiled)
         if timed:
             w_oidhw = s2d.oidhw_w3(wp)
-            row["ms"] = cuda_ms(lambda: conv3_packed_stripe(xps, wp, bp, leaky=leaky, out_dtype=od))
+            row["ms"] = cuda_ms(lambda: conv3_packed_stripe(xps, wt, bp, leaky=leaky, out_dtype=od))
             row["plain_ms"] = cuda_ms(
                 lambda: conv3_packed_taps(xps, wp, bp, leaky=leaky, out_dtype=od), n=3)
             # cuDNN on the materialised concat
@@ -451,48 +475,67 @@ def phase_stripe_kernel():
 
 
 def phase_wino43_kernel():
-    """Kernel B3 (mixed F(2,3) x F(4,3) Winograd) vs its plain version."""
+    """Kernel B3 (mixed F(2,3) x F(4,3) Winograd) vs its plain version, at the
+    path's shapes and at those that reach each of its code paths: an output
+    of one patch, ragged D, H and W with an odd count of patches, F2 of 72,
+    136, 192 and 256 (a ragged last column tile, up to four column blocks),
+    C2 = 256, strided views, weights tiled beforehand or by the wrapper."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
     from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd import (
         conv3_packed_wino43,
         transform_packed_w3_mixed,
     )
-    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd43_cuda import conv3d_wino43_packed
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.winograd43_cuda import (
+        conv3d_wino43_packed,
+        tile_what,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=dev) * 0.05
-    what = transform_packed_w3_mixed(s2d.pack_w3(w)).to(bf16).contiguous()
-    w_oidhw = s2d.oidhw_w3(s2d.pack_w3(w)).to(bf16)
-    bias = torch.randn(64, generator=gen, device=dev) * 0.1
-    w2 = torch.randn((3, 3, 3, 128, 64), generator=gen, device=dev) * 0.03
-    what2 = transform_packed_w3_mixed(s2d.pack_w3(w2)).to(bf16).contiguous()
-    cases = [  # (name, xp shape, bias, leaky, out dtype, timed, xp a strided view)
-        ("phase3_conv", PHASE3, True, True, bf16, True, False),
-        ("phase3_conv", PHASE3, False, False, f32, False, False),
-        ("phase2a_conv", PHASE2A, True, True, bf16, True, False),
-        ("phase2a_conv", PHASE2A, True, False, f32, False, False),
-        ("decoder_conv1_256", (1, 36, 36, 18, 256), True, True, bf16, False, False),
+    weights = {}
+
+    def weight(c2, f2):  # (what, tiled what, OIDHW packed kernel for the library conv, bias)
+        if (c2, f2) not in weights:
+            w = torch.randn((3, 3, 3, c2 // 2, f2 // 2), generator=gen, device=dev) \
+                * (0.05 * (128 / c2) ** 0.5)
+            what = transform_packed_w3_mixed(s2d.pack_w3(w)).to(bf16).contiguous()
+            weights[(c2, f2)] = (what, tile_what(what), s2d.oidhw_w3(s2d.pack_w3(w)).to(bf16),
+                                 torch.randn(f2 // 2, generator=gen, device=dev) * 0.1)
+        return weights[(c2, f2)]
+
+    cases = [  # (name, xp shape, F2, bias, leaky, out dtype, timed, xp a strided view)
+        ("phase3_conv", PHASE3, 128, True, True, bf16, True, False),
+        ("phase3_conv", PHASE3, 128, False, False, f32, False, False),
+        ("phase2a_conv", PHASE2A, 128, True, True, bf16, True, False),
+        ("phase2a_conv", PHASE2A, 128, True, False, f32, False, False),
+        ("decoder_conv1_256", (1, 36, 36, 18, 256), 128, True, True, bf16, False, False),
+        ("decoder_conv0_256", (1, 36, 36, 18, 256), 256, True, True, f32, False, True),
+        ("one_patch", (1, 6, 18, 9, 128), 128, True, True, f32, False, True),
+        ("f2_192", (1, 20, 22, 12, 128), 192, True, True, bf16, False, True),
+        ("f2_192", (1, 20, 22, 12, 128), 192, False, False, f32, False, False),
+        ("f2_136_ragged_columns", RAGGED, 136, True, True, f32, False, True),
+        ("f2_72", RAGGED, 72, True, False, bf16, False, False),
+        ("odd_patches_c256", (1, 9, 11, 7, 256), 136, True, True, f32, False, False),
     ]
-    cases += [("ragged", RAGGED, b, lk, od, False, view)
+    cases += [("ragged", RAGGED, 128, b, lk, od, False, view)
               for b, lk, od, view in ((True, True, bf16, True), (True, True, f32, False),
                                       (False, False, bf16, False), (False, False, f32, True))]
-    cases += [("ragged_odd", (1, 9, 11, 7, 128), True, True, f32, False, True)]
+    cases += [("ragged_odd", (1, 9, 11, 7, 128), 128, True, True, f32, False, True)]
     rows = []
-    for name, shape, use_b, leaky, od, timed, view in cases:
+    for n, (name, shape, f2, use_b, leaky, od, timed, view) in enumerate(cases):
         xp = _rand_view(shape, gen, dev, view)
-        what_c = what if shape[-1] == 128 else what2
+        what, wt, w_oidhw, bias = weight(shape[-1], f2)
         b = bias if use_b else None
-        got = conv3d_wino43_packed(xp, what_c, b, leaky=leaky, out_dtype=od)
-        ref = conv3_packed_wino43(xp, what_c, b, leaky=leaky, out_dtype=od)
-        row = dict(shape=list(shape), bias=use_b, leaky=leaky, out=str(od).replace("torch.", ""),
-                   strided_view=view)
+        tiled = n % 2 == 0  # tiled beforehand or by the wrapper, in turns
+        got = conv3d_wino43_packed(xp, wt if tiled else what, b, leaky=leaky, out_dtype=od)
+        ref = conv3_packed_wino43(xp, what, b, leaky=leaky, out_dtype=od)
+        row = dict(shape=list(shape), f2=f2, bias=use_b, leaky=leaky,
+                   out=str(od).replace("torch.", ""), strided_view=view, tiled_weights=tiled)
         if timed:
-            row["ms"] = cuda_ms(lambda: conv3d_wino43_packed(xp, what_c, b, leaky=leaky,
-                                                             out_dtype=od))
+            row["ms"] = cuda_ms(lambda: conv3d_wino43_packed(xp, wt, b, leaky=leaky, out_dtype=od))
             row["plain_ms"] = cuda_ms(
-                lambda: conv3_packed_wino43(xp, what_c, b, leaky=leaky, out_dtype=od), n=3)
+                lambda: conv3_packed_wino43(xp, what, b, leaky=leaky, out_dtype=od), n=3)
             row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
             row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B3", shape[1:4])
         gate = GATE_MIXED_F32 if od == f32 else GATE_MIXED
@@ -690,7 +733,7 @@ def main():
                       "winograd43_pallas.py:240", launches_routes["B3"], wino43_rows),
         _kernel_entry("conv3d_direct_packed (B4, direct_conv window)", "direct_conv.cu",
                       "pallas_conv.py:209", launches_routes["B4"], direct_rows),
-        _kernel_entry("conv3_packed_stripe (B5, direct_conv stripe)", "direct_conv.cu",
+        _kernel_entry("conv3_packed_stripe (B5, stripe_conv)", "stripe_conv.cu",
                       "stripe_conv.py:192", launches_routes["B5"], stripe_rows),
     ]
     kernels[1]["singles_ms"] = next(r for r in pair_rows if "ms" in r)["singles_ms"]

@@ -1,7 +1,7 @@
-// Pieces shared by the conv kernels of direct_conv.cu and wino_f43.cu: the
-// cp.async / ldmatrix / mma.sync wrappers, the weight ring's chunk loader and
-// the product of one ring chunk on bf16 tensor-core tiles.  (wino_f23.cu
-// keeps its own copies of the first group.)
+// Pieces of the direct conv kernel of direct_conv.cu (B4), the one kernel
+// still on mma.sync: the cp.async / ldmatrix / mma.sync wrappers, the weight
+// ring's chunk loader and the product of one ring chunk on bf16 tensor-core
+// tiles.  (The kernels on wgmma share hopper_common.cuh.)
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,0 +1,105 @@
+"""Device time by op of one ``process_box`` call, from ``torch.profiler``.
+
+    python3 -m jax_nbody_emulator_with_dj_tpu_torch.experiments.profile_box \\
+        [--size 128] [--no-vel] [--no-wino] [--top 25]
+
+Builds the seeded premodulated model at full width (``mid_chan=64``, 3
+levels, bf16; displacement+velocity unless ``--no-vel``), warms up with two
+calls, profiles one call with CPU and CUDA activities, and prints one JSON
+line: the call's wall time, the summed device time, the device time and
+call count of each aten op (``by_op``: the kernels it launched) and of each
+device kernel or copy by name (``by_kernel``: the port's own kernels, which
+no aten op wraps, and the copies by direction show there), the largest
+first.  With the kernels on (default) the interior convs run B1 or
+B2; ``--no-wino`` sends them to cuDNN.  Needs one CUDA card and ``nvcc``;
+the line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .. import HierarchicalConfig, create_emulator
+from ..models.unet import init_unet
+
+def _self_device_us(entry) -> float:
+    """An averaged profiler entry's own device time (the attribute's name
+    differs between PyTorch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(entry, name):
+            return float(getattr(entry, name))
+    return 0.0
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its template arguments' tail; an elementwise
+    kernel by the functor it applies."""
+    if "elementwise_kernel" in name and name.count("at::native::") > 1:
+        return "elementwise " + name.split("at::native::")[2][:48]
+    return name[:80]
+
+
+def run(size=128, vel=True, wino=None, top=25, emit=print):
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the profile needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = HierarchicalConfig(size=(size,) * 3, output_dtype=torch.float32, dtype=torch.bfloat16,
+                             wino=wino, slab=32, tile=(min(size, 128),) * 3)
+    emu = create_emulator(premodulate=True, compute_vel=vel, params=init_unet(0, style=True),
+                          premodulate_z=0.5, premodulate_Om=0.3, device="cuda",
+                          processor_config=cfg)
+    box = np.random.default_rng(0).standard_normal((3, size, size, size)).astype(np.float32)
+    for _ in range(2):
+        emu.process_box(box, 0.5, 0.3)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        emu.process_box(box, 0.5, 0.3)  # returns numpy: ends in a sync
+        wall = time.perf_counter() - t0
+    # Device rows are the kernels and copies themselves: the port's own kernels, which no
+    # aten op wraps, and the copies by direction show here.  Host rows carry, as their own
+    # device time, the kernels each aten op launched.
+    by_kernel, by_op = {}, {}
+    for e in prof.key_averages():
+        us = _self_device_us(e)
+        if us <= 0:
+            continue
+        on_device = e.device_type != torch.autograd.DeviceType.CPU
+        into = (by_kernel if on_device else by_op).setdefault(_short(e.key), dict(ms=0.0, calls=0))
+        into["ms"] += us / 1e3
+        into["calls"] += e.count
+    total = sum(v["ms"] for v in by_kernel.values())
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+
+    def ranked(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]["ms"])[:top])
+
+    row = dict(size=size, vel=vel, wino=emu.processor.wino, wall_s=wall, device_ms=total,
+               by_op=ranked(by_op), by_kernel=ranked(by_kernel), card=card,
+               device=torch.cuda.get_device_name(0))
+    emit(json.dumps(row))
+    return row
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--no-vel", action="store_true", help="the displacement model alone")
+    ap.add_argument("--no-wino", action="store_true", help="interior convs through cuDNN")
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    run(args.size, not args.no_vel, False if args.no_wino else None, args.top)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,17 @@
 Replaces ``jax_nbody_emulator_with_dj_tpu/ops/winograd43_pallas.py::
 conv3d_wino43_pallas_packed`` (B3, ``conv3d_wino43_packed`` here): CUDA C++
 for ``sm_90a`` (``csrc/wino_f43.cu``; its header says what bounds it and how
-it is built), compiled at first use by ``ops/_cuda_build.py`` and bound with
-``ctypes``.
+it is built: ``wgmma`` from shared memory in two consumer warpgroups, two
+producer warpgroups that load and transform the input, a weight ring filled
+by bulk asynchronous copies on mbarriers, registers rebalanced with
+``setmaxnreg``, blocks that stay on their SMs), compiled at first use by
+``ops/_cuda_build.py`` and bound with ``ctypes``.
+
+The kernel reads its weights as 8 KB pieces, one per (column block of 64,
+channel group, point) holding both packed-W taps, each laid out as ``wgmma``
+reads it.  ``tile_what`` makes them from ``transform_packed_w3_mixed``'s
+(4, 6, 2, C2, F2) output (a permutation, plus zero columns up to a multiple
+of 64); a caller that passes the plain tensor has it done on every call.
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain PyTorch
 version (``ops/winograd.py::conv3_packed_wino43``), the same function with
@@ -20,27 +29,49 @@ import torch
 
 from . import _cuda_build, s2d
 from .winograd import conv3_packed_wino43, transform_packed_w3_mixed
-from .winograd_cuda import _check, _vec_arg
+from .winograd_cuda import TiledWh, _check, _untiled, _vec_arg
 
 SOURCE = "wino_f43.cu"
 
 _lib = None
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/wino_f43.cu`` (once per version of the source) and bind it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _cuda_build.build(SOURCE)
+class TiledWhat(TiledWh):
+    """Mixed-Winograd weights in kernel B3's layout: ``tiles`` is (NB, G, 24,
+    2, 4, 64, 8), element ``[nb, g, p, t, q, f, e]`` being ``what[p // 6,
+    V_ORDER[p % 6], t, 32 g + 8 q + e, 64 nb + f]``, zero past ``f2``; it
+    stands for the (4, 6, 2, C2, F2) tensor.  The kernel multiplies a
+    D-point's H-points in the pairs (1, 2), (3, 4), (0, 5), whose columns of
+    AT4 share their sums, so the pieces lie in that order."""
+
+    __slots__ = ()
+    POINTS = (4, 6)
+    V_ORDER = (1, 2, 3, 4, 0, 5)
+    TILE_N = 64
+
+
+def tile_what(what) -> TiledWhat:
+    """(4, 6, 2, C2, F2) from ``transform_packed_w3_mixed`` -> the kernel's pieces."""
+    return TiledWhat.tile(what)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry point's argument types on a build of the source."""
     fn = lib.wino_f43_packed
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/wino_f43.cu`` (once per version of the source) and bind it."""
+    global _lib
+    if _lib is None:
+        _lib = bind(_cuda_build.build(SOURCE))
+    return _lib
 
 
 def conv3d_wino43_packed(xp, what, bias=None, *, leaky: bool = False, out_dtype=None):
@@ -49,14 +80,15 @@ def conv3d_wino43_packed(xp, what, bias=None, *, leaky: bool = False, out_dtype=
 
     Args:
         xp: packed input; bf16 on CUDA.  Any strides with contiguous channels.
-        what: (4, 6, 2, C2, F2) from ``transform_packed_w3_mixed``; bf16 on CUDA.
+        what: (4, 6, 2, C2, F2) from ``transform_packed_w3_mixed``, or
+            ``tile_what`` of it; bf16 on CUDA.
         bias: (F2/2,) unpacked or (F2,) packed float32 bias, or None.
         leaky: fuse LeakyReLU(0.01).
         out_dtype: bf16 or float32 (default: xp's dtype).
     """
     out_dtype = out_dtype or xp.dtype
     if xp.device.type == "cpu":
-        return conv3_packed_wino43(xp, what, bias, leaky=leaky, out_dtype=out_dtype)
+        return conv3_packed_wino43(xp, _untiled(what), bias, leaky=leaky, out_dtype=out_dtype)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     _check(xp, what, out_dtype, points=(4, 6))
@@ -64,10 +96,11 @@ def conv3d_wino43_packed(xp, what, bias=None, *, leaky: bool = False, out_dtype=
     f2 = what.shape[-1]
     bias = _vec_arg(bias, f2, xp.device, "bias")
     lib = build()
+    wt = tile_what(what)
     y = torch.empty((b, d - 2, h - 2, wp - 1, f2), dtype=out_dtype, device=xp.device)
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.wino_f43_packed(
-        xp.data_ptr(), what.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        xp.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(),
         *xp.stride()[:4], b, d, h, wp, c2, f2, int(leaky),
         int(out_dtype == torch.float32), stream,
     )

@@ -52,20 +52,27 @@ class TiledWh:
     point u*4+v, packed-W tap, 8-channel step, output channel, channel; element
     ``[nb, g, p, t, q, f, e]`` is ``wh[p // 4, p % 4, t, 32 g + 8 q + e,
     128 nb + f]``, zero past ``f2``.  ``shape``, ``dtype`` and ``device``
-    describe the (4, 4, 2, C2, F2) tensor it stands for.
+    describe the (4, 4, 2, C2, F2) tensor it stands for.  (``POINTS``,
+    ``V_ORDER`` and ``TILE_N`` are the transform's points along (D, H), the
+    order the kernel takes the H-points in, and its column block; the mixed
+    Winograd kernel's ``TiledWhat`` has its own.)
     """
 
     __slots__ = ("tiles", "f2")
+    POINTS = (4, 4)
+    V_ORDER = (0, 1, 2, 3)
+    TILE_N = TILE_N
 
     def __init__(self, tiles, f2: int):
-        if tiles.dim() != 7 or tuple(tiles.shape[2:]) != (16, 2, TILE_C // 8, TILE_N, 8) \
-                or not 0 < f2 <= tiles.shape[0] * TILE_N:
+        npoints = self.POINTS[0] * self.POINTS[1]
+        if tiles.dim() != 7 or tuple(tiles.shape[2:]) != (npoints, 2, TILE_C // 8, self.TILE_N, 8) \
+                or not 0 < f2 <= tiles.shape[0] * self.TILE_N:
             raise ValueError(f"not tiled Winograd weights: {tuple(tiles.shape)}, F2 = {f2}")
         self.tiles, self.f2 = tiles, f2
 
     @property
     def shape(self):
-        return torch.Size((4, 4, 2, self.tiles.shape[1] * TILE_C, self.f2))
+        return torch.Size(self.POINTS + (2, self.tiles.shape[1] * TILE_C, self.f2))
 
     dtype = property(lambda self: self.tiles.dtype)
     device = property(lambda self: self.tiles.device)
@@ -80,23 +87,34 @@ class TiledWh:
         return self.tiles.data_ptr()
 
     def untiled(self):
-        """The (4, 4, 2, C2, F2) tensor, bit for bit."""
+        """The (points along D, points along H, 2, C2, F2) tensor, bit for bit."""
         nb, g = self.tiles.shape[:2]
-        wh = self.tiles.permute(2, 3, 1, 4, 6, 0, 5).reshape(4, 4, 2, g * TILE_C, nb * TILE_N)
-        return wh[..., :self.f2].contiguous()
+        wh = self.tiles.permute(2, 3, 1, 4, 6, 0, 5).reshape(
+            *self.POINTS, 2, g * TILE_C, nb * self.TILE_N)
+        inverse = sorted(range(self.POINTS[1]), key=self.V_ORDER.__getitem__)
+        return wh[:, inverse, ..., :self.f2].contiguous()
+
+    @classmethod
+    def tile(cls, wh):
+        """The transformed weights ``wh`` (or ``cls`` of them already) as ``cls``."""
+        if type(wh) is cls:
+            return wh
+        if isinstance(wh, TiledWh) or wh.dim() != 5 or tuple(wh.shape[:3]) != cls.POINTS + (2,) \
+                or wh.shape[3] % TILE_C:
+            raise ValueError(f"wh must be {cls.POINTS + (2,)} + (C2 % {TILE_C} == 0, F2), got "
+                             f"{tuple(wh.shape)}")
+        c2, f2 = wh.shape[3:]
+        nb = -(-f2 // cls.TILE_N)
+        padded = torch.nn.functional.pad(wh[:, list(cls.V_ORDER)], (0, nb * cls.TILE_N - f2))
+        t = padded.reshape(cls.POINTS[0] * cls.POINTS[1], 2, c2 // TILE_C, TILE_C // 8, 8, nb,
+                           cls.TILE_N)
+        return cls(t.permute(5, 2, 0, 1, 3, 6, 4).contiguous(), f2)
 
 
 def tile_wh(wh) -> TiledWh:
     """(4, 4, 2, C2, F2) from ``transform_packed_w3`` -> the kernel's pieces."""
-    if isinstance(wh, TiledWh):
-        return wh
-    if wh.dim() != 5 or tuple(wh.shape[:3]) != (4, 4, 2) or wh.shape[3] % TILE_C:
-        raise ValueError(f"wh must be (4, 4, 2, C2 % {TILE_C} == 0, F2), got {tuple(wh.shape)}")
-    c2, f2 = wh.shape[3:]
-    nb = -(-f2 // TILE_N)
-    padded = torch.nn.functional.pad(wh, (0, nb * TILE_N - f2))
-    t = padded.reshape(16, 2, c2 // TILE_C, TILE_C // 8, 8, nb, TILE_N)
-    return TiledWh(t.permute(5, 2, 0, 1, 3, 6, 4).contiguous(), f2)
+    return TiledWh.tile(wh)
+
 
 _lib = None
 

@@ -173,32 +173,40 @@ def test_stripe_checks_its_arguments():
         tdc.conv3_packed_stripe(x.to("meta"), torch.zeros((3, 3, 2, 64, 64), device="meta"))
 
 
-@pytest.mark.parametrize("ctot,bh", [(32, 16), (128, 16), (160, 16), (256, 16), (288, 8),
-                                     (512, 8)])
-def test_stripe_patch_fits_shared_memory(ctot, bh):
-    """The 2-slot plane ring of (BH+2) x 9 cells x (C+8) bf16 plus the weight
-    ring (8,704 bytes a stage; 3 stages and two blocks per SM up to 128
-    channels, else 4 and one) stays inside the 232,448 bytes a block may use
-    and the 233,472 an SM has (1,024 reserved per block); and an incoming
-    plane (16-byte pieces, 256 threads a step) lands within the 6 x C/32 steps
-    of the kd = 1 taps, less the ring's stages - 2."""
-    assert tdc.stripe_block_h(ctot) == bh
+@pytest.mark.parametrize("ctot,bh,stages", [(32, 16, 8), (128, 16, 8), (160, 16, 8), (256, 16, 5),
+                                            (288, 8, 8), (320, 8, 8), (512, 8, 4)])
+def test_stripe_patch_fits_shared_memory(ctot, bh, stages):
+    """One block per SM: the weight ring (8,192 bytes a stage), the two plane
+    slots of (BH+2) x 9 cells x C bf16 (144 bytes per H row and 8 channels),
+    the bf16 staging of each consumer warpgroup (one per 8 rows of the patch:
+    64 rows x 144 bytes), 128 bias values and 20 mbarriers stay inside the
+    232,448 bytes a block may use; the ring is as deep as that leaves, at most
+    8 stages and never fewer than 3; and one more stage would not fit (or is
+    the ninth)."""
+    assert tdc.stripe_block_h(ctot) == bh and tdc.stripe_ring_stages(ctot) == stages
     cells = (bh + 2) * 9
-    blocks = tdc.stripe_blocks_per_sm(ctot)
-    stages = 3 if blocks == 2 else 4
-    smem = 2 * cells * (ctot + 8) * 2 + stages * 8704
-    assert smem <= 232448 and blocks * (smem + 1024) <= 233472
-    assert -(-cells * (ctot // 8) // 256) + stages - 2 <= 6 * (ctot // 32)
+    smem = stages * 8192 + 2 * cells * ctot * 2 + (bh // 8) * 64 * 144 + 128 * 4 + 20 * 8
+    assert smem == tdc.stripe_smem_bytes(ctot, stages) <= tdc.SMEM_MAX == 232448
+    assert 3 <= stages <= 8
+    assert stages == 8 or tdc.stripe_smem_bytes(ctot, stages + 1) > tdc.SMEM_MAX
 
 
 @pytest.mark.parametrize("od,patches,sms", [(140, 81, 132), (66, 25, 132), (34, 9, 132),
-                                            (134, 561, 132), (5, 1, 132), (1, 3, 132)])
+                                            (134, 561, 132), (5, 1, 132), (1, 3, 132),
+                                            (140, 162, 132)])
 def test_stripe_segments_cover_the_planes(od, patches, sms):
     nseg = tdc.stripe_segments(od, patches, sms)
     dseg = -(-od // nseg)
     assert 1 <= nseg <= od and dseg * -(-od // dseg) >= od
     if patches < sms and od >= 8:  # too few patches for the card: D is cut
         assert nseg > 1
+    # no other cut keeps the SMs busier: waves that are full, segments that are long (a
+    # segment's start and end cost what 2.5 of its planes cost)
+    def busy(n):
+        seg = -(-od // n)
+        blocks = patches * -(-od // seg)
+        return blocks / (-(-blocks // sms) * sms) * seg / (seg + 2.5)
+    assert all(busy(nseg) >= busy(n) - 1e-9 for n in range(1, od + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,39 @@ class TestCudaConvRoutes:
         assert got.dtype == out_dtype and got.shape == ref.shape
         assert _rel(got, ref) < (1e-5 if out_dtype == torch.float32 else 0.01)
 
+    # The shapes that reach the redesigned kernel's other code paths: an output
+    # of one patch, ragged D, H and W (WP - 1 not a multiple of 8) with an odd
+    # count of patches, Co of 72, 136, 192 and 256 (a ragged last column tile, a
+    # second column block), 256, 320 and 512 input channels (two consumer
+    # warpgroups; one, with an accumulator set per kd), a strided view, float32
+    # out, weights tiled beforehand or by the wrapper.
+    STRIPE_NEW_SHAPES = [
+        ((1, 3, 10, 9), (128,), 128, True),            # one patch
+        ((1, 3, 10, 9), (256, 256), 136, False),       # ... of the one-consumer kernel
+        ((1, 9, 11, 7), (256,), 136, True),
+        ((2, 13, 16, 21), (32, 64, 128, 96), 72, False),
+        ((1, 7, 19, 12), (256, 256), 136, True),
+        ((2, 13, 16, 21), (128, 128, 128, 128), 256, False),
+        ((1, 20, 22, 12), (128,), 192, True),
+        ((1, 12, 37, 18), (64, 64), 256, False),       # three H patches: an odd count
+    ]
+
+    @pytest.mark.parametrize("shape,cins,co,view", STRIPE_NEW_SHAPES)
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("tiled", [False, True])
+    def test_stripe_kernel_new_shapes(self, shape, cins, co, view, out_dtype, tiled):
+        xps = tuple(_input(shape, c, 61 + i, view and i == 0) for i, c in enumerate(cins))
+        ctot = sum(cins)
+        wp = rnd(3, 3, 2, ctot, co, seed=65, scale=(13.5 * ctot) ** -0.5).to("cuda", torch.bfloat16)
+        bp = rnd(co, seed=66, scale=0.1).to("cuda")
+        got = direct_conv_cuda.conv3_packed_stripe(
+            xps, direct_conv_cuda.tile_wp(wp) if tiled else wp, bp, leaky=True,
+            out_dtype=out_dtype)
+        ref = tdirect.conv3_packed_taps(xps, wp, bp, leaky=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        assert _rel(got, ref) < (1e-5 if out_dtype == torch.float32 else 0.01)
+
     def test_stripe_kernel_refuses_what_it_cannot_take(self):
         x = torch.zeros((1, 6, 6, 5, 128), dtype=torch.bfloat16, device="cuda")
         wp = torch.zeros((3, 3, 2, 640, 128), dtype=torch.bfloat16, device="cuda")
@@ -117,6 +150,36 @@ class TestCudaConvRoutes:
         ref = twino.conv3_packed_wino43(xp, what, b, leaky=fused, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert winograd43_cuda.conv3d_wino43_packed.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        assert _rel(got, ref) < (1e-4 if out_dtype == torch.float32 else 0.08)
+
+    # The shapes that reach the redesigned kernel's other code paths: an output
+    # of one patch, ragged D, H and W with an odd count of patches, F2 of 72,
+    # 136, 192 and 256 (a ragged last column tile, up to four column blocks),
+    # C2 = 256, a strided view, float32 out, weights tiled beforehand or by the
+    # wrapper.
+    WINO43_NEW_SHAPES = [
+        ((1, 6, 18, 9), 128, 128, True),       # one patch
+        ((1, 9, 11, 7), 256, 136, False),
+        ((1, 20, 22, 12), 128, 192, True),
+        ((2, 13, 16, 21), 128, 72, True),
+        ((2, 13, 16, 21), 256, 256, False),
+        ((1, 7, 37, 18), 128, 136, True),      # three H patches: an odd count
+    ]
+
+    @pytest.mark.parametrize("shape,c2,f2,view", WINO43_NEW_SHAPES)
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("tiled", [False, True])
+    def test_wino43_kernel_new_shapes(self, shape, c2, f2, view, out_dtype, tiled):
+        xp = _input(shape, c2, 71, view)
+        w = rnd(3, 3, 3, c2 // 2, f2 // 2, seed=72, scale=(13.5 * c2) ** -0.5).to("cuda")
+        what = twino.transform_packed_w3_mixed(ts2d.pack_w3(w)).to(torch.bfloat16).contiguous()
+        b = rnd(f2 // 2, seed=73, scale=0.1).to("cuda")
+        got = winograd43_cuda.conv3d_wino43_packed(
+            xp, winograd43_cuda.tile_what(what) if tiled else what, b, leaky=True,
+            out_dtype=out_dtype)
+        ref = twino.conv3_packed_wino43(xp, what, b, leaky=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
         assert got.dtype == out_dtype and got.shape == ref.shape
         assert _rel(got, ref) < (1e-4 if out_dtype == torch.float32 else 0.08)
 
