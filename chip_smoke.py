@@ -6,9 +6,9 @@ Builds the port's CUDA kernels from ``jax_nbody_emulator_with_dj_tpu_torch/
 csrc`` (one ``nvcc`` per source, all started together): B1, the F(2,3)^2
 Winograd conv, and B2, its fused factored-tangent pair (``wino_f23.cu``: wgmma, mbarrier rings,
 specialised warpgroups, a thread-block cluster for the pair); B4,
-the direct conv with a resident window (``direct_conv.cu``); B5, the direct
+the direct conv with a resident window (``direct_conv.cu``), B5, the direct
 conv streamed plane by plane over N parts (``stripe_conv.cu``), and B3, the
-mixed F(2,3) x F(4,3) Winograd conv (``wino_f43.cu``), both on wgmma with
+mixed F(2,3) x F(4,3) Winograd conv (``wino_f43.cu``), all three on wgmma with
 mbarrier weight rings and specialised warpgroups.  Holds each against its plain PyTorch
 version at the shapes its path gives it, drives the conv-route bench
 (``experiments/conv_routes.py``, the path of B3, B4 and B5) at full width at
@@ -353,43 +353,68 @@ def _held(phase, name, got, ref, gate, row):
 
 
 def phase_direct_kernel():
-    """Kernel B4 (direct conv, resident window) vs its plain version, bf16."""
+    """Kernel B4 (direct conv, resident window) vs its plain version, bf16, at
+    the path's shapes and at those that reach each of its code paths: an
+    output of exactly one patch and of less than one, an odd count of output
+    planes (the second plane of the last patch masked), H not a multiple of
+    16 and ragged W with odd patch counts, C of 64, 96, 256 and 320 (one to
+    three column blocks, a ragged last one; two to ten channel groups through
+    the three window slots), strided views, weights tiled beforehand or by
+    the wrapper."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d
     from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv import conv3_packed_taps
-    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import conv3d_direct_packed
+    from jax_nbody_emulator_with_dj_tpu_torch.ops.direct_conv_cuda import (
+        conv3d_direct_packed,
+        tile_wp,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=dev) * 0.05
-    wp = s2d.pack_w3(w).to(torch.bfloat16).contiguous()
-    w_oidhw = s2d.oidhw_w3(wp)
-    bias = torch.randn(64, generator=gen, device=dev) * 0.1
-    w2 = torch.randn((3, 3, 3, 128, 128), generator=gen, device=dev) * 0.03
-    wp2 = s2d.pack_w3(w2).to(torch.bfloat16).contiguous()
+    weights = {}
+
+    def weight(c2):  # (wp, tiled wp, OIDHW packed kernel for the library conv, unpacked bias)
+        if c2 not in weights:
+            w = torch.randn((3, 3, 3, c2 // 2, c2 // 2), generator=gen, device=dev) \
+                * (0.05 * (128 / c2) ** 0.5)
+            wp = s2d.pack_w3(w).to(torch.bfloat16).contiguous()
+            weights[c2] = (wp, tile_wp(wp), s2d.oidhw_w3(wp),
+                           torch.randn(c2 // 2, generator=gen, device=dev) * 0.1)
+        return weights[c2]
+
     cases = [  # (name, xp shape, bias, leaky, timed, xp a strided view)
         ("phase3_conv", PHASE3, True, True, True, False),
         ("phase3_conv", PHASE3, False, False, False, False),
         ("phase2a_conv", PHASE2A, True, True, True, False),
-        ("decoder_conv_256", (1, 36, 36, 18, 256), False, True, False, False),
+        ("decoder_conv_256", (1, 36, 36, 18, 256), False, True, True, False),
+        ("one_patch", (1, 4, 18, 9, 128), True, True, False, True),
+        ("less_than_one_patch", (1, 3, 3, 2, 128), True, False, False, False),
+        ("odd_planes_ragged_h", (1, 5, 37, 18, 128), True, True, False, False),
+        ("odd_patches_c256", (1, 9, 11, 7, 256), True, True, False, True),
+        ("c64", (2, 7, 19, 12, 64), True, True, False, True),
+        ("c96", (1, 9, 20, 10, 96), False, True, False, False),
+        ("c320", (1, 7, 19, 12, 320), True, True, False, True),
+        ("c320", (2, 5, 35, 9, 320), True, False, False, False),
     ]
     cases += [("ragged", RAGGED, b, lk, False, view)
               for b, lk, view in ((True, True, True), (True, False, False),
                                   (False, True, False), (False, False, True))]
     rows = []
-    for name, shape, use_b, leaky, timed, view in cases:
+    for n, (name, shape, use_b, leaky, timed, view) in enumerate(cases):
         xp = _rand_view(shape, gen, dev, view)
-        wp_c = wp if shape[-1] == 128 else wp2
-        b = (bias if shape[-1] == 128 else torch.randn(128, generator=gen, device=dev)) \
-            if use_b else None
+        wp, wt, w_oidhw, bias = weight(shape[-1])
+        b = bias if use_b else None
         bp = None if b is None else s2d.pack_bias(b)
-        got = conv3d_direct_packed(xp, wp_c, b, leaky=leaky)
-        ref = conv3_packed_taps(xp, wp_c, bp, leaky=leaky)
-        row = dict(shape=list(shape), bias=use_b, leaky=leaky, out="bfloat16", strided_view=view)
-        if timed:
-            row["ms"] = cuda_ms(lambda: conv3d_direct_packed(xp, wp_c, b, leaky=leaky))
-            row["plain_ms"] = cuda_ms(lambda: conv3_packed_taps(xp, wp_c, bp, leaky=leaky), n=3)
+        tiled = n % 2 == 0  # tiled beforehand or by the wrapper, in turns
+        got = conv3d_direct_packed(xp, wt if tiled else wp, b, leaky=leaky)
+        ref = conv3_packed_taps(xp, wp, bp, leaky=leaky)
+        row = dict(shape=list(shape), bias=use_b, leaky=leaky, out="bfloat16", strided_view=view,
+                   tiled_weights=tiled)
+        if timed:  # as the model would pass them: tiled once
+            row["ms"] = cuda_ms(lambda: conv3d_direct_packed(xp, wt, b, leaky=leaky))
+            row["plain_ms"] = cuda_ms(lambda: conv3_packed_taps(xp, wp, bp, leaky=leaky), n=3)
             row["library_ms"] = cuda_ms(lambda: s2d.conv3_packed(xp, w_oidhw))
-            row["bound_ms"], row["bound_by"], _ = _routes().route_bound("B4", shape[1:4])
+            row["bound_ms"], row["bound_by"], _ = _routes().route_bound(
+                "B4", shape[1:4], 1, shape[-1], shape[-1])
         rows.append(_held("direct_kernel", name, got, ref, GATE_KERNEL, row))
         del xp, got, ref
     torch.cuda.empty_cache()

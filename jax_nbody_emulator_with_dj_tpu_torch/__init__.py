@@ -5,17 +5,30 @@ is tested against).  Ported so far: the premodulated displacement and
 displacement+velocity models on the packed hierarchical runtime, with the
 F(2,3)^2 Winograd conv and its fused factored-tangent pair as CUDA kernels
 for ``sm_90a`` (``csrc/wino_f23.cu``); and the three other conv routes of the
-JAX package -- direct with a resident window, direct plane-streamed over N
-parts (``csrc/direct_conv.cu``), mixed F(2,3) x F(4,3) Winograd
-(``csrc/wino_f43.cu``) -- behind the conv-route bench
+JAX package -- direct with a resident window (``csrc/direct_conv.cu``),
+direct plane-streamed over N parts (``csrc/stripe_conv.cu``), mixed F(2,3) x
+F(4,3) Winograd (``csrc/wino_f43.cu``) -- behind the conv-route bench
 (``experiments/conv_routes.py``).  Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.  This package never imports JAX.
 """
 
-from .cosmology import dlogH_dloga, growth_factor, growth_rate, hubble_rate, vel_norm
+from .cosmology import (
+    acc_norm,
+    dlogD_dz,
+    dlogH_dloga,
+    dlogH_dz,
+    growth_d_approx,
+    growth_factor,
+    growth_rate,
+    hubble_rate,
+    vel_norm,
+)
 from .emulator import (
     NBodyEmulator,
     create_emulator,
+    default_parameters_path,
+    ensure_native_layout,
+    load_default_parameters,
     modulate_emulator_parameters,
     modulate_emulator_parameters_vel,
 )
@@ -38,6 +51,9 @@ __all__ = [
     "NBodyEmulator",
     "modulate_emulator_parameters",
     "modulate_emulator_parameters_vel",
+    "default_parameters_path",
+    "load_default_parameters",
+    "ensure_native_layout",
     "HierarchicalConfig",
     "HierarchicalProcessor",
     "NBodyEmulatorCore",
@@ -45,8 +61,12 @@ __all__ = [
     "growth_factor",
     "hubble_rate",
     "growth_rate",
+    "dlogD_dz",
+    "dlogH_dz",
     "dlogH_dloga",
     "vel_norm",
+    "acc_norm",
+    "growth_d_approx",
     "conv3d_wino_packed",
     "conv3d_wino_pair_packed",
     "conv3d_wino43",

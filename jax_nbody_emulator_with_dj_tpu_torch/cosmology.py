@@ -21,10 +21,14 @@ from scipy.special import hyp2f1
 
 __all__ = [
     "growth_factor",
+    "growth_d_approx",
     "hubble_rate",
     "growth_rate",
+    "dlogD_dz",
+    "dlogH_dz",
     "dlogH_dloga",
     "vel_norm",
+    "acc_norm",
 ]
 
 # D(a) \propto a * 2F1(1, 1/3; 11/6; -OL a^3 / Om)
@@ -92,7 +96,46 @@ def dlogH_dloga(z, Om):
     return -(1.0 + z) * 1.5 * Om * (1.0 + z) ** 2 / e2
 
 
+def dlogD_dz(z, Om):
+    """d log D / dz = -f / (1+z)."""
+    z = np.asarray(z, np.float64)
+    return -growth_rate(z, Om) / (1.0 + z)
+
+
+def dlogH_dz(z, Om):
+    """d log H / dz = -(d log H / d log a) / (1+z)."""
+    z = np.asarray(z, np.float64)
+    return -dlogH_dloga(z, Om) / (1.0 + z)
+
+
 def vel_norm(z, Om):
     """Velocity normalization D(z) f(z) H(z) / (1+z)  [km/s]."""
     z = np.asarray(z, np.float64)
     return growth_factor(z, Om) * growth_rate(z, Om) * hubble_rate(z, Om) / (1.0 + z)
+
+
+def acc_norm(z, Om):
+    """Acceleration normalization D f H^2 dlogH/dloga / (1+z)  [km/s^2]."""
+    z = np.asarray(z, np.float64)
+    return (growth_factor(z, Om) * growth_rate(z, Om) * hubble_rate(z, Om) ** 2
+            * dlogH_dloga(z, Om) / (1.0 + z))
+
+
+def growth_d_approx(Om, z):
+    """Carroll-Press-Turner (1992) closed-form growth-factor fit.
+
+    Returns the *unnormalized* growth (a * g(a) with the CPT fitting function):
+    only ratios ``growth_d_approx(Om, z1) / growth_d_approx(Om, z2)`` are
+    meaningful.  Workflows that compare with Quijote use it to rescale z=127
+    initial conditions to z=0; the package's own pipelines rescale with the
+    exact ``growth_factor`` ratio (the fit is good to ~1e-3).  Note the
+    argument order: ``(Om, z)``.
+    """
+    Om = np.asarray(Om, np.float64)
+    zp1 = 1.0 + np.asarray(z, np.float64)
+    ol0 = 1.0 - Om
+    e2 = ol0 + Om * zp1**3  # H^2/H0^2 (flat LCDM, matter + Lambda)
+    om_z = Om * zp1**3 / e2
+    ol_z = ol0 / e2
+    g = 2.5 * om_z / (om_z ** (4.0 / 7.0) - ol_z + (1.0 + 0.5 * om_z) * (1.0 + ol_z / 70.0))
+    return g / zp1

@@ -1,14 +1,16 @@
-"""An ablation of the conv kernels B5 (plane-streamed direct conv) and B3
-(mixed F(2,3) x F(4,3) Winograd): where each kernel's time goes.
+"""An ablation of the conv kernels B4 (direct conv from a resident window),
+B5 (plane-streamed direct conv) and B3 (mixed F(2,3) x F(4,3) Winograd):
+where each kernel's time goes.
 
     python3 -m jax_nbody_emulator_with_dj_tpu_torch.experiments.conv_ablation
     python3 -m jax_nbody_emulator_with_dj_tpu_torch.experiments.conv_ablation \\
-        --b5 0 7 --b3 0 7 4 --segments 1 3 8 13 --shape 1,68,68,34,128
+        --b4 0 7 --b5 0 7 --b3 0 7 4 --segments 1 3 8 13 --shape 1,68,68,34,128
 
-Builds ``csrc/stripe_conv.cu`` once per ``--b5`` variant and
-``csrc/wino_f43.cu`` once per ``--b3`` variant, a variant being the source's
-ablation mask (``STRIPE_ABLATE``, ``WINO43_ABLATE``); all ``nvcc`` runs start
-together.  Times each at one shape (default: the first conv of a
+Builds ``csrc/direct_conv.cu`` once per ``--b4`` variant,
+``csrc/stripe_conv.cu`` once per ``--b5`` variant and ``csrc/wino_f43.cu``
+once per ``--b3`` variant, a variant being the source's ablation mask
+(``DIRECT_ABLATE``, ``STRIPE_ABLATE``, ``WINO43_ABLATE``); all ``nvcc`` runs
+start together.  Times each at one shape (default: the first conv of a
 128^3 phase-3 tile; B5 with one part and with two), in turns over the
 variants, CUDA events, mean of ``--runs`` launches after a warm-up, weights
 tiled beforehand.  A variant with mask 0 is first held against the plain
@@ -36,9 +38,14 @@ from ..ops import _cuda_build, direct_conv_cuda, s2d, winograd43_cuda
 from ..ops.direct_conv import conv3_packed_taps
 from ..ops.winograd import conv3_packed_wino43, transform_packed_w3_mixed
 
+B4_VARIANTS = ("0", "7", "6", "4", "2", "1")
 B5_VARIANTS = ("0", "7", "6", "4", "2", "1")
 B3_VARIANTS = ("0", "7", "6", "4", "2", "8", "16")
 PHASE3 = (1, 142, 142, 71, 128)
+
+
+def _b4_defines(variant: str) -> tuple[str, ...]:
+    return (f"DIRECT_ABLATE={int(variant)}",)
 
 
 def _b5_defines(variant: str) -> tuple[str, ...]:
@@ -71,17 +78,21 @@ def _ptxas(source, defines):
             if "registers" in ln or "spill" in ln or "arning" in ln]
 
 
-def run(b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
+def run(b4_variants, b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the ablation needs a GPU")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    jobs = ([(direct_conv_cuda.STRIPE_SOURCE, _b5_defines(v)) for v in b5_variants]
+    if b4_variants and shape[-1] != f2:
+        raise ValueError(f"B4 takes a square kernel: C2 {shape[-1]} != F2 {f2}")
+    jobs = ([(direct_conv_cuda.SOURCE, _b4_defines(v)) for v in b4_variants]
+            + [(direct_conv_cuda.STRIPE_SOURCE, _b5_defines(v)) for v in b5_variants]
             + [(winograd43_cuda.SOURCE, _b3_defines(v)) for v in b3_variants])
     with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
         libs = list(pool.map(lambda job: _cuda_build.build(*job), jobs))
-    b5_libs, b3_libs = libs[:len(b5_variants)], libs[len(b5_variants):]
+    n4, n5 = len(b4_variants), len(b5_variants)
+    b4_libs, b5_libs, b3_libs = libs[:n4], libs[n4:n4 + n5], libs[n4 + n5:]
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -95,6 +106,10 @@ def run(b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
     what = transform_packed_w3_mixed(s2d.pack_w3(w)).to(bf16).contiguous()
     what_t = winograd43_cuda.tile_what(what)
     bias = torch.randn(f2, generator=gen, device=dev) * 0.1
+    bias_unpacked = torch.randn(f2 // 2, generator=gen, device=dev) * 0.1
+
+    def b4():
+        return direct_conv_cuda.conv3d_direct_packed(xs[0], wts[1], bias_unpacked, leaky=True)
 
     def b5(parts, out=bf16):
         return direct_conv_cuda.conv3_packed_stripe(xs[:parts], wts[parts], bias, leaky=True,
@@ -104,9 +119,24 @@ def run(b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
         return winograd43_cuda.conv3d_wino43_packed(xs[0], what_t, bias, leaky=True, out_dtype=out)
 
     rows = {}
-    shipped = direct_conv_cuda._stripe_lib, winograd43_cuda._lib
+    shipped = direct_conv_cuda._lib, direct_conv_cuda._stripe_lib, winograd43_cuda._lib
     try:
         for turn in range(2):  # in turns over the variants: two passes, the mean is reported
+            for variant, lib, defines in zip(b4_variants, b4_libs, map(_b4_defines, b4_variants)):
+                direct_conv_cuda._lib = direct_conv_cuda.bind_window(lib)
+                row = rows.setdefault(("B4", variant), dict(kernel="B4", variant=variant,
+                                                            shape=list(shape), f2=f2))
+                if turn == 0:
+                    row["ptxas"] = _ptxas(direct_conv_cuda.SOURCE, defines)
+                    if int(variant) == 0:
+                        ref = conv3_packed_taps(xs[0], wp1, s2d.pack_bias(bias_unpacked),
+                                                leaky=True)
+                        row["rel_err_bfloat16"] = err = _rel(b4(), ref)
+                        if not err < 0.03:
+                            raise RuntimeError(f"B4 variant {variant} disagrees with the plain "
+                                               f"version: {err} >= 0.03")
+                        del ref
+                row.setdefault("ms", []).append(_ms(b4, runs))
             for variant, lib, defines in zip(b5_variants, b5_libs, map(_b5_defines, b5_variants)):
                 direct_conv_cuda._stripe_lib = direct_conv_cuda.bind_stripe(lib)
                 row = rows.setdefault(("B5", variant), dict(kernel="B5", variant=variant,
@@ -143,7 +173,7 @@ def run(b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
                             del ref
                 row.setdefault("ms", []).append(_ms(b3, runs))
     finally:
-        direct_conv_cuda._stripe_lib, winograd43_cuda._lib = shipped
+        direct_conv_cuda._lib, direct_conv_cuda._stripe_lib, winograd43_cuda._lib = shipped
 
     out = []
     for row in rows.values():
@@ -170,6 +200,7 @@ def run(b5_variants, b3_variants, segments, shape, f2, runs, emit=print):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--b4", nargs="*", default=list(B4_VARIANTS), help="B4 ablation masks")
     ap.add_argument("--b5", nargs="*", default=list(B5_VARIANTS), help="B5 ablation masks")
     ap.add_argument("--b3", nargs="*", default=list(B3_VARIANTS), help="B3 ablation masks")
     ap.add_argument("--segments", nargs="*", type=int, default=[],
@@ -179,8 +210,8 @@ def main(argv=None):
     ap.add_argument("--f2", type=int, default=128)
     ap.add_argument("--runs", type=int, default=10)
     args = ap.parse_args(argv)
-    run(args.b5, args.b3, args.segments, tuple(int(v) for v in args.shape.split(",")), args.f2,
-        args.runs)
+    run(args.b4, args.b5, args.b3, args.segments, tuple(int(v) for v in args.shape.split(",")),
+        args.f2, args.runs)
 
 
 if __name__ == "__main__":

@@ -164,7 +164,7 @@ def build_routes(xs, w, bias):
         "cudnn": (cudnn, None),
         "B1": (per_part(conv3d_wino_packed, whs), conv3d_wino_packed),
         "B3": (per_part(conv3d_wino43_packed, whats), conv3d_wino43_packed),
-        "B4": (per_part(conv3d_direct_packed, wps), conv3d_direct_packed),
+        "B4": (per_part(conv3d_direct_packed, [tile_wp(wi) for wi in wps]), conv3d_direct_packed),
         "B5": (lambda: conv3_packed_stripe(xs, wp_tiled, bp, leaky=True), conv3_packed_stripe),
     }, (wp, bp)
 

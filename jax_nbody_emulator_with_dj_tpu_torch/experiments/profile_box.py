@@ -1,18 +1,25 @@
-"""Device time by op of one ``process_box`` call, from ``torch.profiler``.
+"""Where one ``process_box`` call's time goes: device time by op from
+``torch.profiler``, and wall time by phase.
 
     python3 -m jax_nbody_emulator_with_dj_tpu_torch.experiments.profile_box \\
-        [--size 128] [--no-vel] [--no-wino] [--top 25]
+        [--size 128] [--no-vel] [--no-wino] [--top 25] [--warmups 2] [--no-trace]
 
 Builds the seeded premodulated model at full width (``mid_chan=64``, 3
-levels, bf16; displacement+velocity unless ``--no-vel``), warms up with two
-calls, profiles one call with CPU and CUDA activities, and prints one JSON
-line: the call's wall time, the summed device time, the device time and
-call count of each aten op (``by_op``: the kernels it launched) and of each
-device kernel or copy by name (``by_kernel``: the port's own kernels, which
-no aten op wraps, and the copies by direction show there), the largest
-first.  With the kernels on (default) the interior convs run B1 or
-B2; ``--no-wino`` sends them to cuDNN.  Needs one CUDA card and ``nvcc``;
-the line names the card and its power limit.
+levels, bf16; displacement+velocity unless ``--no-vel``) on the runtime's
+default geometry (slab 32, tiles of 128^3), warms up with ``--warmups``
+calls, and prints one JSON line.  From one call under ``torch.profiler``
+(CPU and CUDA activities; left out with ``--no-trace``, as a 512^3 box's
+trace is long): the call's wall time, the summed device time, the device
+time and call count of each aten op (``by_op``: the kernels it launched) and
+of each device kernel or copy by name (``by_kernel``: the port's own
+kernels, which no aten op wraps, and the copies by direction show there),
+the largest first.  From one more call with ``profile=True`` (a device sync
+after every phase): its wall time, ``phase_ms`` (its last entry, ``to_host``,
+is the results' copy to numpy), the kernels' launches, and
+the peak of ``torch.cuda.max_memory_allocated`` since the warm-up.  With the
+kernels on (default) the interior convs run B1 or B2; ``--no-wino`` sends
+them to cuDNN.  Needs one CUDA card and ``nvcc``; the line names the card and
+its power limit.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 
 from .. import HierarchicalConfig, create_emulator
 from ..models.unet import init_unet
+from ..ops import winograd_cuda
+
 
 def _self_device_us(entry) -> float:
     """An averaged profiler entry's own device time (the attribute's name
@@ -45,21 +54,8 @@ def _short(name: str) -> str:
     return name[:80]
 
 
-def run(size=128, vel=True, wino=None, top=25, emit=print):
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the profile needs a GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = HierarchicalConfig(size=(size,) * 3, output_dtype=torch.float32, dtype=torch.bfloat16,
-                             wino=wino, slab=32, tile=(min(size, 128),) * 3)
-    emu = create_emulator(premodulate=True, compute_vel=vel, params=init_unet(0, style=True),
-                          premodulate_z=0.5, premodulate_Om=0.3, device="cuda",
-                          processor_config=cfg)
-    box = np.random.default_rng(0).standard_normal((3, size, size, size)).astype(np.float32)
-    for _ in range(2):
-        emu.process_box(box, 0.5, 0.3)
-    torch.cuda.synchronize()
+def _trace(emu, box, top):
+    """One call under ``torch.profiler``: (wall s, device ms, by_op, by_kernel)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -84,10 +80,44 @@ def run(size=128, vel=True, wino=None, top=25, emit=print):
     def ranked(d):
         return dict(sorted(d.items(), key=lambda kv: -kv[1]["ms"])[:top])
 
-    row = dict(size=size, vel=vel, wino=emu.processor.wino, wall_s=wall, device_ms=total,
-               by_op=ranked(by_op), by_kernel=ranked(by_kernel), card=card,
-               device=torch.cuda.get_device_name(0))
+    return wall, total, ranked(by_op), ranked(by_kernel)
+
+
+def run(size=128, vel=True, wino=None, top=25, warmups=2, trace=True, emit=print):
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the profile needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = HierarchicalConfig(size=(size,) * 3, output_dtype=torch.float32, dtype=torch.bfloat16,
+                             wino=wino, slab=32, tile=(min(size, 128),) * 3)
+    emu = create_emulator(premodulate=True, compute_vel=vel, params=init_unet(0, style=True),
+                          premodulate_z=0.5, premodulate_Om=0.3, device="cuda",
+                          processor_config=cfg)
+    box = np.random.default_rng(0).standard_normal((3, size, size, size)).astype(np.float32)
+    for _ in range(warmups):
+        emu.process_box(box, 0.5, 0.3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = dict(size=size, vel=vel, wino=emu.processor.wino, slab=cfg.slab, tile=list(cfg.tile),
+               tile1=cfg.tile1, warmups=warmups)
+    if trace:
+        row["wall_s"], row["device_ms"], row["by_op"], row["by_kernel"] = _trace(emu, box, top)
+    b1, b2 = winograd_cuda.conv3d_wino_packed, winograd_cuda.conv3d_wino_pair_packed
+    b1.launches = b2.launches = 0
+    t0 = time.perf_counter()
+    out = emu.process_box(box, 0.5, 0.3, profile=True)
+    row["wall_profiled_s"] = time.perf_counter() - t0
+    row["launches"] = dict(B1=b1.launches, B2=b2.launches)
+    row["phase_ms"] = {k: round(v * 1e3, 3) for k, v in emu.processor.last_timings.items()}
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    outs = out if vel else (out,)
+    row["finite"] = bool(all(o.shape == (3, size, size, size) and np.isfinite(o).all()
+                             for o in outs))
+    row.update(card=card, device=torch.cuda.get_device_name(0))
     emit(json.dumps(row))
+    if not row["finite"]:
+        raise RuntimeError(f"the {size}^3 box came out with a wrong shape or not finite")
     return row
 
 
@@ -97,8 +127,12 @@ def main(argv=None):
     ap.add_argument("--no-vel", action="store_true", help="the displacement model alone")
     ap.add_argument("--no-wino", action="store_true", help="interior convs through cuDNN")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--warmups", type=int, default=2, help="calls before the measured ones")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="leave out the torch.profiler call (phases, launches and memory only)")
     args = ap.parse_args(argv)
-    run(args.size, not args.no_vel, False if args.no_wino else None, args.top)
+    run(args.size, not args.no_vel, False if args.no_wino else None, args.top, args.warmups,
+        not args.no_trace)
 
 
 if __name__ == "__main__":

@@ -27,7 +27,9 @@ or two (disp+vel) throughout.
 
 Where the port updates in place: the level buffers are allocated once per
 ``process_box`` call (``torch.zeros``); each tile's result is copied into
-its slice of the destination buffer, and the periodic ghost margins are
+its slice of the destination buffer (one cast to ``buf_dtype`` where that
+differs from ``dtype``; a consumer casts the tile it reads back), and the
+periodic ghost margins are
 filled by in-place strip copies inside the same buffer.  Tile reads are
 views (slices) of the padded buffers, never gathers.  The phases are plain
 Python loops; nothing is traced or compiled.
@@ -83,6 +85,12 @@ class HierarchicalConfig:
     packed: bool = True  # the unpacked path is not ported yet (ROADMAP A4)
     wino: bool | None = None  # Winograd kernel for eligible convs; None = on for CUDA
     y0_cache: bool = False  # not ported yet (ROADMAP A4)
+    y0_slab_h: int | None = None  # H-segment height of the y0 cache's strip fill: accepted
+    # as given and, like y0_cache, read by nothing until ROADMAP A4
+    buf_dtype: torch.dtype | None = None  # storage of the level buffers between the phases
+    # (default: ``dtype``).  With float32 compute, bfloat16 halves the buffers: a phase's
+    # result is rounded once where it is written, a consumer casts the tile it reads back to
+    # ``dtype``, and the math inside a tile stays float32.
 
     def __post_init__(self):
         self.size = tuple(int(s) for s in self.size)
@@ -112,6 +120,8 @@ class HierarchicalConfig:
                 raise ValueError(f"packed mode needs tile1 % 8 == 0, got {self.tile1}")
             if self.tile[2] % 4:
                 raise ValueError(f"packed mode needs tile W % 4 == 0, got {self.tile}")
+        if self.buf_dtype is None:
+            self.buf_dtype = self.dtype
 
 
 def resolve_device(device=None) -> torch.device:
@@ -238,7 +248,7 @@ class HierarchicalProcessor:
     def _new_bufs(self, margin, level: int = 1):
         """The level buffers: one for disp, two (primal, tangent) for disp+vel."""
         return tuple(
-            torch.zeros(self._buf_shape(margin, level), dtype=self.config.dtype,
+            torch.zeros(self._buf_shape(margin, level), dtype=self.config.buf_dtype,
                         device=self.device)
             for _ in range(2 if self.compute_vel else 1)
         )
@@ -283,13 +293,17 @@ class HierarchicalProcessor:
         return buf[:, starts[0]:starts[0] + sizes[0], starts[1]:starts[1] + sizes[1],
                    starts[2]:starts[2] + sizes[2]]
 
+    def _read_tiles(self, bufs, starts, sizes):
+        """One window (a view) of each level buffer, cast to the compute dtype
+        where the buffers are stored in another one (``buf_dtype``)."""
+        return tuple(self._slice(b, starts, sizes).to(self.config.dtype) for b in bufs)
+
     def _tile_window(self, bufs, start, halo, out_margin):
         """The (tile1 + 2*halo) windows of buffers padded by ``halo``, and the
         write offset of their tile in buffers padded by ``out_margin``."""
         m1 = self.config.tile1
         e = m1 + 2 * halo
-        win = tuple(self._slice(b, (start[0], start[1], start[2] // 2), (e, e, e // 2))
-                    for b in bufs)
+        win = self._read_tiles(bufs, (start[0], start[1], start[2] // 2), (e, e, e // 2))
         s5 = (
             out_margin[0] + start[0],
             out_margin[1] + start[1],
@@ -371,8 +385,7 @@ class HierarchicalProcessor:
         # y2 window: level-2 extent M/2 + 2*PHASE2C_MARGIN at the plain
         # level-2 anchor (the buffer carries exactly that margin).
         e2 = self.config.tile1 // 2 + 2 * self.PHASE2C_MARGIN
-        t2 = tuple(self._slice(b, (start[0] // 2, start[1] // 2, start[2] // 4), (e2, e2, e2 // 2))
-                   for b in y2)
+        t2 = self._read_tiles(y2, (start[0] // 2, start[1] // 2, start[2] // 4), (e2, e2, e2 // 2))
         # conv_r1's skip: the 4-halo y1 window phase 2b reads too.
         t1, s5 = self._tile_window(y1, start, self.PHASE2B_MARGIN, self._r1_margin())
         self._write(r1, s5, self._phase2c_tile(t2, t1))
@@ -406,10 +419,9 @@ class HierarchicalProcessor:
         hm = self.PHASE3_R1_MARGIN_PACKED
         box_tile = boxp[:, :, a[0]:a[0] + td + 16, a[1]:a[1] + th + 16, a[2]:a[2] + tw + 16]
         # level-1 halo-4 slices: r1 carries that margin, so they start at the plain anchor
-        r1_tile = tuple(self._slice(
-            b, (a[0] // 2, a[1] // 2, a[2] // 4),
-            (td // 2 + 2 * hm, th // 2 + 2 * hm, (tw // 2 + 2 * hm) // 2),
-        ) for b in r1)
+        r1_tile = self._read_tiles(
+            r1, (a[0] // 2, a[1] // 2, a[2] // 4),
+            (td // 2 + 2 * hm, th // 2 + 2 * hm, (tw // 2 + 2 * hm) // 2))
         for out, y in zip(outs, self._phase3_tile(box_tile, r1_tile, head)):
             out[:, :, a[0]:a[0] + td, a[1]:a[1] + th, a[2]:a[2] + tw].copy_(y)
 
@@ -438,12 +450,15 @@ class HierarchicalProcessor:
             torch.cuda.synchronize(self.device)
 
     def process_box(self, input_box, z: float, Om: float, as_numpy: bool = True,
-                    profile: bool = False):
+                    profile: bool = False, donate_input: bool = False):
         """Emulate a full periodic (C, N, N, N) box at redshift z and matter density Om.
 
         Returns the displacement, or ``(disp, vel)`` for a velocity model.
         With ``profile=True`` the device is synchronised after each phase and
         the per-phase wall times land in ``self.last_timings`` (seconds).
+        ``donate_input=True`` lets a torch tensor that already lies on the
+        device in the compute dtype be scaled in place (do not reuse it), which
+        saves one box-sized allocation; for any other input it changes nothing.
         """
         cfg = self.config
         if tuple(input_box.shape) != (cfg.in_chan,) + cfg.size:
@@ -461,14 +476,19 @@ class HierarchicalProcessor:
         with torch.no_grad():
             box = torch.as_tensor(np.asarray(input_box) if not torch.is_tensor(input_box)
                                   else input_box)
-            box = box.to(device=self.device, dtype=cfg.dtype)
+            # upload, then cast on the device: measured faster from 256^3 up than casting on
+            # the host, which one .to(device=, dtype=) call does (experiments/upload_cast.py);
+            # one rounding either way
+            box = box.to(self.device).to(cfg.dtype)
+            donated = donate_input and box is input_box
             dz32 = torch.tensor(float(growth_factor(z, Om)), dtype=torch.float32)
             vf = torch.tensor(float(vel_norm(z, Om)) if self.compute_vel else 0.0,
                               dtype=torch.float32)
             head = (vf * 6.0, vf * 6.0 / dz32)
             scale = dz32.to(cfg.dtype) / torch.tensor(6.0, dtype=cfg.dtype)
             # NCDHW scaled input, wrap-padded by 8 (phase-1 halo 4, phase-3 halo 8).
-            boxp = _wrap_pad(box[None] * scale.to(self.device), 8)
+            scale = scale.to(self.device)
+            boxp = _wrap_pad((box.mul_(scale) if donated else box * scale)[None], 8)
             del box
             stamp("scale")
             h1 = self._phase1_all(boxp, self._new_bufs(self._h1_margin()))
@@ -489,7 +509,8 @@ class HierarchicalProcessor:
             outs = self._phase3_all(boxp, r1, outs, head)
             del r1
             stamp("phase3")
-        if profile:
-            self.last_timings = timings
         outs = tuple(o[0].cpu().numpy() if as_numpy else o[0] for o in outs)
+        if profile:
+            timings["to_host"] = time.perf_counter() - t0  # the results' copy (as_numpy)
+            self.last_timings = timings
         return outs if self.compute_vel else outs[0]

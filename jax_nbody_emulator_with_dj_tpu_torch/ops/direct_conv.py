@@ -9,8 +9,8 @@ a VALID 3x3x3 conv in the W-parity packed layout is 18 tap products
 bias, LeakyReLU(0.01) and one cast.  ``conv3_packed_taps`` repeats exactly
 that and calls no convolution: the library's conv (``s2d.conv3_packed``) is
 the yardstick the kernels are timed beside, not their reference.  The CUDA
-kernels are in ``csrc/direct_conv.cu``, their wrappers in
-``ops/direct_conv_cuda.py``.
+kernels are ``csrc/direct_conv.cu`` (B4) and ``csrc/stripe_conv.cu`` (B5),
+their wrappers in ``ops/direct_conv_cuda.py``.
 """
 
 from __future__ import annotations

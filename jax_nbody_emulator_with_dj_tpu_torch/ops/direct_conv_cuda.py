@@ -9,14 +9,16 @@ one D plane at a time).  Both are CUDA C++ for ``sm_90a`` (B4 in
 bounds them and how they are built), compiled at first use by
 ``ops/_cuda_build.py`` and bound with ``ctypes``.
 
-B5 is written for Hopper: ``wgmma`` from shared memory in one or two consumer
-warpgroups, a producer warpgroup that streams the input planes, and a weight
-ring filled by bulk asynchronous copies on mbarriers.  It reads its weights
-as 8 KB pieces, one per (column block, kd, channel group, kh, ka), each laid
-out as ``wgmma`` reads it and stored in the order the taps run.  ``tile_wp``
-makes them from ``pack_w3``'s (3, 3, 2, C, Co) tensor (a permutation, plus
-zero columns up to a multiple of 128); a caller that passes the plain tensor
-has it done on every call.
+Both are written for Hopper: ``wgmma`` from shared memory in consumer
+warpgroups, a producer warpgroup that brings the input in (B5: one D plane
+at a time; B4: a patch's halo window, one 32-channel group at a time, by
+blocks that stay resident and walk over patches), and a weight ring filled by
+bulk asynchronous copies on mbarriers.  They read their weights as 8 KB
+pieces, one per (column block, kd, channel group, kh, ka), each laid out as
+``wgmma`` reads it; B5 runs them in the order they are stored, B4 with the
+channel group outermost.  ``tile_wp`` makes them from ``pack_w3``'s (3, 3, 2,
+C, Co) tensor (a permutation, plus zero columns up to a multiple of 128); a
+caller that passes the plain tensor has it done on every call.
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain PyTorch
 version (``ops/direct_conv.py::conv3_packed_taps``).  There is no other
@@ -37,8 +39,8 @@ SOURCE = "direct_conv.cu"         # B4
 STRIPE_SOURCE = "stripe_conv.cu"  # B5
 MAX_PARTS = 4      # input parts one B5 launch takes
 STRIPE_CTOT = 512  # most input channels, over all parts, that B5's two plane slots hold
-TILE_N = 128       # output channels of a B5 weight piece (the kernel's column block)
-TILE_C = 32        # input channels of a B5 weight piece
+TILE_N = 128       # output channels of a weight piece (the kernels' column block)
+TILE_C = 32        # input channels of a weight piece
 SMEM_MAX = 232448  # dynamic shared memory one block may use on the H100
 
 _lib = None
@@ -46,7 +48,7 @@ _stripe_lib = None
 
 
 class TiledWp:
-    """Packed direct-conv weights in kernel B5's layout.
+    """Packed direct-conv weights in the layout kernels B4 and B5 read.
 
     ``tiles`` is (NB, 3, G, 6, 4, 128, 8): column block, kd, channel group,
     tap kh*2+ka, 8-channel step, output channel, channel; element
@@ -88,7 +90,7 @@ class TiledWp:
 
 
 def tile_wp(wp) -> TiledWp:
-    """(3, 3, 2, C, Co) from ``s2d.pack_w3`` -> kernel B5's pieces."""
+    """(3, 3, 2, C, Co) from ``s2d.pack_w3`` -> the kernels' pieces."""
     if isinstance(wp, TiledWp):
         return wp
     if wp.dim() != 5 or tuple(wp.shape[:3]) != (3, 3, 2) or wp.shape[3] % TILE_C \
@@ -105,20 +107,23 @@ def _untiled(wp):
     return wp.untiled() if isinstance(wp, TiledWp) else wp
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/direct_conv.cu`` (B4; once per version of the source) and bind it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _cuda_build.build(SOURCE)
+def bind_window(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare B4's entry point's argument types on a build of its source."""
     fn = lib.direct_conv_window
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/direct_conv.cu`` (B4; once per version of the source) and bind it."""
+    global _lib
+    if _lib is None:
+        _lib = bind_window(_cuda_build.build(SOURCE))
+    return _lib
 
 
 def bind_stripe(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -181,13 +186,12 @@ def conv3d_direct_packed(xp, wp, bias_unpacked=None, *, leaky: bool = False):
 
     Args:
         xp: packed input; bf16 on CUDA.  Any strides with contiguous channels.
-        wp: (3, 3, 2, 2C, 2C) packed kernel (``s2d.pack_w3``), square; bf16 on CUDA.
+        wp: (3, 3, 2, 2C, 2C) packed kernel (``s2d.pack_w3``), square, or
+            ``tile_wp`` of it; bf16 on CUDA.
         bias_unpacked: the unpacked (C,) float32 bias, or None.
         leaky: fuse LeakyReLU(0.01).
     """
     c2 = xp.shape[-1]
-    if isinstance(wp, TiledWp):
-        raise TypeError("B4 takes the plain (3, 3, 2, 2C, 2C) kernel, not B5's tiled pieces")
     if wp.shape[-2] != c2 or wp.shape[-1] != c2:
         raise ValueError(f"packed kernel must be square ({c2}, {c2}), got {tuple(wp.shape)}")
     if bias_unpacked is not None and bias_unpacked.shape != (c2 // 2,):
@@ -195,7 +199,7 @@ def conv3d_direct_packed(xp, wp, bias_unpacked=None, *, leaky: bool = False):
                          "vector")
     bias = None if bias_unpacked is None else s2d.pack_bias(bias_unpacked.float())
     if xp.device.type == "cpu":
-        return conv3_packed_taps(xp, wp, bias, leaky=leaky)
+        return conv3_packed_taps(xp, _untiled(wp), bias, leaky=leaky)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     if xp.dim() != 5:
@@ -205,11 +209,13 @@ def conv3d_direct_packed(xp, wp, bias_unpacked=None, *, leaky: bool = False):
     bias = _bias_arg(bias, c2, xp.device)
     b, d, h, wpd, _ = xp.shape
     lib = build()
+    wt = tile_wp(wp)
     y = torch.empty((b, d - 2, h - 2, wpd - 1, c2), dtype=xp.dtype, device=xp.device)
+    sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.direct_conv_window(
-        xp.data_ptr(), wp.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        *xp.stride()[:4], b, d, h, wpd, c2, c2, int(leaky), 0, stream,
+        xp.data_ptr(), wt.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        *xp.stride()[:4], b, d, h, wpd, c2, c2, int(leaky), 0, sms, stream,
     )
     if rc != 0:
         raise RuntimeError(f"direct_conv window kernel launch failed with CUDA error {rc}")

@@ -1,9 +1,10 @@
-"""The weight layouts of the redesigned conv kernels B5 and B3, on the CPU.
+"""The weight layouts of the redesigned conv kernels B4, B5 and B3, on the CPU.
 
 The CUDA kernels read their weights as 8 KB pieces laid out as ``wgmma`` reads
-them: B5 (``csrc/stripe_conv.cu``) the packed direct-conv kernel cut by
-``ops/direct_conv_cuda.py::tile_wp`` into (column block, kd, channel group,
-tap) pieces in the order the taps run, B3 (``csrc/wino_f43.cu``) the mixed
+them: B5 (``csrc/stripe_conv.cu``) and B4 (``csrc/direct_conv.cu``) the packed
+direct-conv kernel cut by ``ops/direct_conv_cuda.py::tile_wp`` into (column
+block, kd, channel group, tap) pieces (B5 runs them in that order, B4 with the
+channel group outermost), B3 (``csrc/wino_f43.cu``) the mixed
 Winograd weights cut by ``ops/winograd43_cuda.py::tile_what`` into (column
 block of 64, channel group, point) pieces holding both packed-W taps.  Here:
 each re-tile is a permutation (plus zero columns up to the column block) that
@@ -95,8 +96,8 @@ def test_tile_wp_is_idempotent_and_checks_its_input():
         tdc.TiledWp(tiled.tiles, 129)  # more columns than the tiles hold
     with pytest.raises(ValueError):
         tdc.TiledWp(tiled.tiles[..., :4], 72)
-    with pytest.raises(TypeError, match="plain"):  # B4 reads the plain kernel
-        tdc.conv3d_direct_packed(torch.zeros((1, 6, 6, 5, 64)), tdc.tile_wp(T(rnd(3, 3, 2, 64, 64))))
+    with pytest.raises(ValueError, match="square"):  # B4 takes the same pieces, of a square kernel
+        tdc.conv3d_direct_packed(torch.zeros((1, 6, 6, 5, 64)), tiled)
 
 
 @pytest.mark.parametrize("cins,co", [((64,), 64), ((32, 64), 72), ((32, 64, 128, 96), 8)])
@@ -109,6 +110,40 @@ def test_stripe_wrapper_takes_tiled_weights_on_the_cpu(cins, co, tiled):
     got = tdc.conv3_packed_stripe(xps, tdc.tile_wp(wp) if tiled else wp, bp, leaky=True)
     assert torch.equal(got, tdirect.conv3_packed_taps(xps, wp, bp, leaky=True))
     assert tdc.conv3_packed_stripe.launches == 0
+
+
+@pytest.mark.parametrize("shape,c2", [((1, 6, 7, 5), 64), ((2, 5, 9, 4), 128), ((1, 4, 4, 3), 320)])
+@pytest.mark.parametrize("use_bias,leaky", [(True, True), (False, False)])
+def test_direct_wrapper_takes_tiled_weights_on_the_cpu(shape, c2, use_bias, leaky):
+    """B4 reads B5's pieces: on the CPU tiled and plain weights give the plain version's bits."""
+    xp = T(rnd(*shape, c2, seed=14))
+    wp = T(rnd(3, 3, 2, c2, c2, seed=15, scale=0.05))
+    b = T(rnd(c2 // 2, seed=16, scale=0.1)) if use_bias else None
+    got = tdc.conv3d_direct_packed(xp, tdc.tile_wp(wp), b, leaky=leaky)
+    assert torch.equal(got, tdc.conv3d_direct_packed(xp, wp, b, leaky=leaky))
+    bp = None if b is None else ts2d.pack_bias(b)
+    assert torch.equal(got, tdirect.conv3_packed_taps(xp, wp, bp, leaky=leaky))
+    assert tdc.conv3d_direct_packed.launches == 0
+
+
+def test_direct_piece_order_is_group_outermost():
+    """B4's producer walks (group, kd, kh * 2 + ka) over ``tile_wp``'s (column block, kd,
+    group, tap) pieces: piece ((nb * 3 + kd) * G + g) * 6 + k of the flat tensor, the six
+    taps of one (kd, group) contiguous."""
+    c, co = 96, 136
+    wp = T(rnd(3, 3, 2, c, co, seed=17))
+    tiles = tdc.tile_wp(wp).tiles
+    g_count = c // 32
+    flat = tiles.reshape(-1, 4, 128, 8)
+    for nb in range(2):
+        for g in range(g_count):
+            for kd in range(3):
+                for k in range(6):
+                    piece = flat[((nb * 3 + kd) * g_count + g) * 6 + k]
+                    cols = min(128, co - 128 * nb)
+                    want = wp[kd, k // 2, k % 2, 32 * g:32 * g + 32, 128 * nb:128 * nb + cols]
+                    got = piece.permute(0, 2, 1).reshape(32, 128)  # (8 q + e, f)
+                    assert torch.equal(got[:, :cols], want) and not got[:, cols:].any()
 
 
 # ---------------------------------------------------------------------------

@@ -53,24 +53,67 @@ class TestCudaConvRoutes:
         if not torch.cuda.is_available():
             pytest.skip("needs an NVIDIA GPU and nvcc")
 
+    # B4's block owns a patch of 2 D planes x 16 H rows x 8 cells and walks over patches:
+    # an output of exactly one patch and of less than one, an odd count of output planes
+    # (the second plane of the last patch masked), H not a multiple of 16 with an odd
+    # count of patches, ragged W; C of 64 to 320 (one to three column blocks, a ragged
+    # last one; two to ten channel groups through the three window slots); a strided
+    # view; weights tiled beforehand or by the wrapper.
     @pytest.mark.parametrize("shape,view", [((1, 12, 20, 18), False), ((2, 13, 16, 21), True),
-                                            ((1, 3, 3, 2), False)])
-    @pytest.mark.parametrize("c2", [128, 256])
+                                            ((1, 3, 3, 2), False), ((1, 4, 18, 9), True),
+                                            ((1, 5, 37, 18), False), ((1, 9, 11, 7), True)])
+    @pytest.mark.parametrize("c2", [64, 96, 128, 256, 320])
     @pytest.mark.parametrize("use_bias", [False, True])
     @pytest.mark.parametrize("leaky", [False, True])
-    def test_direct_kernel_matches_plain(self, shape, view, c2, use_bias, leaky):
+    @pytest.mark.parametrize("tiled", [False, True])
+    def test_direct_kernel_matches_plain(self, shape, view, c2, use_bias, leaky, tiled):
         xp = _input(shape, c2, 31, view)
         wp = ts2d.pack_w3(rnd(3, 3, 3, c2 // 2, c2 // 2, seed=32, scale=(13.5 * c2) ** -0.5))
         wp = wp.to("cuda", torch.bfloat16)
         b = rnd(c2 // 2, seed=33, scale=0.1).to("cuda") if use_bias else None
         before = direct_conv_cuda.conv3d_direct_packed.launches
-        got = direct_conv_cuda.conv3d_direct_packed(xp, wp, b, leaky=leaky)
+        got = direct_conv_cuda.conv3d_direct_packed(
+            xp, direct_conv_cuda.tile_wp(wp) if tiled else wp, b, leaky=leaky)
         ref = tdirect.conv3_packed_taps(xp, wp, None if b is None else ts2d.pack_bias(b),
                                         leaky=leaky)
         torch.cuda.synchronize()
         assert direct_conv_cuda.conv3d_direct_packed.launches == before + 1
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert _rel(got, ref) < 0.01
+
+    @pytest.mark.parametrize("shape,c2", [((1, 5, 37, 18), 128), ((2, 13, 16, 21), 256)])
+    def test_direct_kernel_float32_out(self, shape, c2):
+        """The C entry point's ``out_f32`` form, which the wrapper (output in the
+        input's dtype) never asks for: float32 from the fragments, 1e-5 of the
+        plain version (only the summation order differs)."""
+        xp = _input(shape, c2, 34, True)
+        wp = ts2d.pack_w3(rnd(3, 3, 3, c2 // 2, c2 // 2, seed=35, scale=(13.5 * c2) ** -0.5))
+        wp = wp.to("cuda", torch.bfloat16)
+        bp = rnd(c2, seed=36, scale=0.1).to("cuda")
+        b, d, h, w = shape
+        y = torch.empty((b, d - 2, h - 2, w - 1, c2), dtype=torch.float32, device="cuda")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rc = direct_conv_cuda.build().direct_conv_window(
+            xp.data_ptr(), direct_conv_cuda.tile_wp(wp).data_ptr(), bp.data_ptr(), y.data_ptr(),
+            *xp.stride()[:4], b, d, h, w, c2, c2, 1, 1, sms,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        ref = tdirect.conv3_packed_taps(xp, wp, bp, leaky=True, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert _rel(y, ref) < 1e-5
+
+    def test_direct_kernel_refuses_what_it_cannot_take(self):
+        x = torch.zeros((1, 6, 6, 5, 128), dtype=torch.bfloat16, device="cuda")
+        wp = torch.zeros((3, 3, 2, 128, 128), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(TypeError, match="bf16"):
+            direct_conv_cuda.conv3d_direct_packed(x.float(), wp.float())
+        with pytest.raises(ValueError, match="square"):
+            direct_conv_cuda.conv3d_direct_packed(x, direct_conv_cuda.tile_wp(wp[..., :64]))
+        x48 = torch.zeros((1, 6, 6, 5, 48), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="multiples of 32"):
+            direct_conv_cuda.conv3d_direct_packed(x48, wp[:, :, :, :48, :48].contiguous())
+        with pytest.raises(ValueError, match="contiguous channels"):
+            direct_conv_cuda.conv3d_direct_packed(x[..., ::2], wp[:, :, :, :64, :64].contiguous())
 
     @pytest.mark.parametrize("shape,view", [((1, 12, 20, 18), False), ((2, 13, 16, 21), True)])
     @pytest.mark.parametrize("cins,co", [((128,), 128), ((128, 128), 256), ((128, 128, 128), 128),
