@@ -20,7 +20,14 @@ the displacement+velocity model on a 128^3 box (every pair site runs B2),
 each with the kernels on against the same box with them off, and one 256^3
 velocity box (whose phase 1 is wider than the JAX package's pair threshold:
 the port runs B2 there too, and B1 not at all).  16^3 boxes are held against
-the models' own forwards on the wrap-padded input.
+the models' own forwards on the wrap-padded input.  Then the flexible-
+cosmology (style) models, the reference's default: 16^3 style disp and vel
+boxes through the hierarchical runtime, kernels off and on, against the
+subbox runtime on the card (the style forward, its velocity by
+``torch.func.jvp``), and the style bf16 subbox against the float32 one; and
+128^3 style disp and vel boxes through ``create_emulator(premodulate=False)``
+-> ``HierarchicalProcessor.process_box``, whose per-box fold feeds B1 / B2,
+timed, against the premodulated model folded at the same (z, Om).
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -606,12 +613,15 @@ def _rms(a, b):
     return float((a.astype(np.float64) - b).std() / b.astype(np.float64).std())
 
 
-def _emulator(vel, seed, **kw):
+def _emulator(vel, seed, style=False, **kw):
+    """A seeded full-width model on the card: premodulated at (z, Om) = (0.5, 0.3),
+    or with ``style`` the style model, which takes the cosmology per call."""
     from jax_nbody_emulator_with_dj_tpu_torch import create_emulator
     from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
 
-    return create_emulator(premodulate=True, compute_vel=vel, params=init_unet(seed, style=True),
-                           premodulate_z=0.5, premodulate_Om=0.3, device="cuda", **kw)
+    return create_emulator(premodulate=not style, compute_vel=vel,
+                           params=init_unet(seed, style=True), premodulate_z=0.5,
+                           premodulate_Om=0.3, device="cuda", **kw)
 
 
 def _config(n, **kw):
@@ -655,14 +665,14 @@ def phase_small_box(vel):
             raise RuntimeError(f"16^3 box (vel={vel}, wino={wino}) vs model forward: {errs}")
 
 
-def _timed_box(vel, n, wino, seed=0, runs=RUNS, **cfg_kw):
+def _timed_box(vel, n, wino, seed=0, runs=RUNS, style=False, **cfg_kw):
     """Warm-up, then ``runs`` process_box calls (the first with the kernel
     counts set to 0 just before and read just after), then one profiled call."""
     from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda as wc
 
     box = np.random.default_rng(seed).standard_normal((3, n, n, n)).astype(np.float32)
-    emu = _emulator(vel, seed, processor_config=_config(n, dtype=torch.bfloat16, wino=wino,
-                                                          **cfg_kw))
+    emu = _emulator(vel, seed, style=style,
+                    processor_config=_config(n, dtype=torch.bfloat16, wino=wino, **cfg_kw))
     emu.process_box(box, 0.5, 0.3)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -679,9 +689,9 @@ def _timed_box(vel, n, wino, seed=0, runs=RUNS, **cfg_kw):
     emu.process_box(box, 0.5, 0.3, profile=True)
     phases = {k: round(v * 1e3, 3) for k, v in emu.processor.last_timings.items()}
     wall = float(np.median(walls))
-    log("slice", vel=vel, wino=emu.processor.wino, size=n, mid_chan=64, dtype="bfloat16",
-        median_wall_s=wall, walls_s=walls, voxels_per_s=n**3 / wall, launches=launches,
-        phase_ms=phases, max_memory_allocated=peak)
+    log("style_slice" if style else "slice", vel=vel, wino=emu.processor.wino, size=n,
+        mid_chan=64, dtype="bfloat16", median_wall_s=wall, walls_s=walls,
+        voxels_per_s=n**3 / wall, launches=launches, phase_ms=phases, max_memory_allocated=peak)
     out = _check_box(out, n, vel, f"{n}^3 box")
     del emu
     torch.cuda.empty_cache()
@@ -691,8 +701,9 @@ def _timed_box(vel, n, wino, seed=0, runs=RUNS, **cfg_kw):
 def phase_slice(vel):
     """A main path at full width: 128^3, mid_chan=64, bf16, kernels on and off.
 
-    Returns the kernel launch counts of the kernels-on run.  The disp path
-    runs B1 at every Winograd site; the vel path runs B2 at every pair site."""
+    Returns the kernel launch counts and the outputs of the kernels-on run.
+    The disp path runs B1 at every Winograd site; the vel path runs B2 at
+    every pair site."""
     n = 128
     on, launches = _timed_box(vel, n, None, slab=32, tile=(n,) * 3)  # None: on for CUDA
     off, launches_off = _timed_box(vel, n, False, slab=32, tile=(n,) * 3)
@@ -709,7 +720,7 @@ def phase_slice(vel):
         raise RuntimeError(f"wino=False still launched a kernel: {launches_off}")
     if not ok:
         raise RuntimeError(f"slice (vel={vel}) kernels on vs off: {errs}")
-    return launches
+    return launches, on
 
 
 def phase_vel_256():
@@ -719,6 +730,74 @@ def phase_vel_256():
     _, launches = _timed_box(True, 256, None, runs=1, slab=32, tile=(128,) * 3)
     if launches["B1"] != 0 or launches["B2"] <= 0:
         raise RuntimeError(f"256^3 vel box: expected B2 at every pair site and no B1: {launches}")
+
+
+def _style_box(vel, n, box, cfg):
+    """The style model through ``create_emulator(premodulate=False)`` on the card."""
+    return _check_box(_emulator(vel, 1, style=True, processor_config=cfg).process_box(
+        box, 0.5, 0.3), n, vel, f"style {n}^3 box")
+
+
+def phase_style_small_box():
+    """Style disp and vel 16^3 boxes, float32: the hierarchical runtime (the
+    per-box fold, kernels off and on) against the subbox runtime on the card,
+    which runs the style forward itself and, for velocity, ``torch.func.jvp``
+    through cuDNN's channels-last convs.  Then that subbox run in bf16 against
+    float32, printed and held at the kernel path's gates."""
+    from jax_nbody_emulator_with_dj_tpu_torch import SubboxConfig
+
+    n = 16
+    box = np.random.default_rng(1).standard_normal((3, n, n, n)).astype(np.float32)
+    for vel in (False, True):
+        ref = _style_box(vel, n, box, SubboxConfig(size=(n,) * 3, ndiv=(2, 1, 1)))
+        rows = []
+        for wino in (False, True):
+            out = _style_box(vel, n, box, _config(n, slab=8, tile=(8, 8, 8), dtype=torch.float32,
+                                                  wino=wino))
+            rows.append((f"hierarchical_wino_{wino}", out, GATE_SLICE if wino else 2e-4,
+                         GATE_VEL if wino else GATE_F32_VEL))
+        out = _style_box(vel, n, box, SubboxConfig(size=(n,) * 3, ndiv=(2, 1, 1),
+                                                    dtype=torch.bfloat16))
+        rows.append(("subbox_bf16", out, GATE_SLICE, GATE_VEL))
+        for name, out, disp_gate, vel_gate in rows:
+            errs = dict(disp_rel_max_err=_rel(out[0], ref[0]), disp_gate=disp_gate)
+            ok = errs["disp_rel_max_err"] < disp_gate
+            if vel:
+                errs.update(vel_rms_err=_rms(out[1], ref[1]), vel_gate=vel_gate,
+                            vel_rel_max_err=_rel(out[1], ref[1]))
+                ok = ok and errs["vel_rms_err"] < vel_gate
+            log("style_small_box_vs_subbox", vel=vel, run=name, size=n, **errs)
+            if not ok:
+                raise RuntimeError(f"style 16^3 box (vel={vel}, {name}) vs subbox: {errs}")
+
+
+def phase_style_slice(premodulated):
+    """The style models' path at full width: 128^3, mid_chan=64, bf16, through
+    ``create_emulator(premodulate=False)`` -> ``process_box``, timed as the
+    premodulated slice (``fold`` in ``phase_ms`` is the per-box fold + pack),
+    against ``premodulated[vel]``, the premodulated model's output of the same
+    box with the style folded at the same (z, Om) and the same config (the
+    ``slice`` phase's kernels-on run).  Returns the kernels' launch counts per
+    style box."""
+    n = 128
+    launches = {}
+    for vel in (False, True):
+        out, launches[vel] = _timed_box(vel, n, None, style=True, slab=32, tile=(n,) * 3)
+        ref = premodulated[vel]
+        errs = dict(disp_rel_max_err=_rel(out[0], ref[0]), disp_gate=GATE_SLICE)
+        ok = errs["disp_rel_max_err"] < GATE_SLICE
+        if vel:
+            errs.update(vel_rms_err=_rms(out[1], ref[1]), vel_gate=GATE_VEL,
+                        vel_rel_max_err=_rel(out[1], ref[1]))
+            ok = ok and errs["vel_rms_err"] < GATE_VEL
+        log("style_slice_vs_premodulated", vel=vel, **errs)
+        kernel = "B2" if vel else "B1"
+        if launches[vel][kernel] <= 0:
+            raise RuntimeError(f"the style {'vel' if vel else 'disp'} path launched {kernel} "
+                               "0 times")
+        if not ok:
+            raise RuntimeError(f"style slice (vel={vel}) vs premodulated fold: {errs}")
+    return launches
 
 
 def _kernel_entry(name, source, replaces, launches, rows):
@@ -742,9 +821,11 @@ def main():
     pair_rows = phase_pair_kernel()
     phase_small_box(vel=False)
     phase_small_box(vel=True)
-    launches_disp = phase_slice(vel=False)
-    launches_vel = phase_slice(vel=True)
+    launches_disp, out_disp = phase_slice(vel=False)
+    launches_vel, out_vel = phase_slice(vel=True)
     phase_vel_256()
+    phase_style_small_box()
+    launches_style = phase_style_slice({False: out_disp, True: out_vel})
     direct_rows = phase_direct_kernel()
     stripe_rows = phase_stripe_kernel()
     wino43_rows = phase_wino43_kernel()
@@ -762,6 +843,9 @@ def main():
                       "stripe_conv.py:192", launches_routes["B5"], stripe_rows),
     ]
     kernels[1]["singles_ms"] = next(r for r in pair_rows if "ms" in r)["singles_ms"]
+    # launches per 128^3 box on the style models' path (the per-box fold feeds B1 / B2)
+    kernels[0]["style_launches"] = launches_style[False]["B1"]
+    kernels[1]["style_launches"] = launches_style[True]["B2"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of the N-body emulator, for one NVIDIA H100.
 
 A second package beside ``jax_nbody_emulator_with_dj_tpu`` (the reference it
-is tested against).  Ported so far: the premodulated displacement and
-displacement+velocity models on the packed hierarchical runtime, with the
-F(2,3)^2 Winograd conv and its fused factored-tangent pair as CUDA kernels
-for ``sm_90a`` (``csrc/wino_f23.cu``); and the three other conv routes of the
+is tested against).  Ported so far: the four model cores (flexible-cosmology
+style models and premodulated ones, displacement and displacement+velocity),
+the subbox runtime, and the packed hierarchical runtime, on which a style
+model's weights are folded at each box's cosmology; the F(2,3)^2 Winograd
+conv and its fused factored-tangent pair as CUDA kernels for ``sm_90a``
+(``csrc/wino_f23.cu``); and the three other conv routes of the
 JAX package -- direct with a resident window (``csrc/direct_conv.cu``),
 direct plane-streamed over N parts (``csrc/stripe_conv.cu``), mixed F(2,3) x
 F(4,3) Winograd (``csrc/wino_f43.cu``) -- behind the conv-route bench
@@ -33,7 +35,13 @@ from .emulator import (
     modulate_emulator_parameters_vel,
 )
 from .hierarchical import HierarchicalConfig, HierarchicalProcessor
-from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
+from .subbox import SubboxConfig, SubboxProcessor
+from .models.cores import (
+    NBodyEmulatorCore,
+    NBodyEmulatorVelCore,
+    StyleNBodyEmulatorCore,
+    StyleNBodyEmulatorVelCore,
+)
 from .ops import (
     conv3_packed_stripe,
     conv3d_direct,
@@ -54,8 +62,12 @@ __all__ = [
     "default_parameters_path",
     "load_default_parameters",
     "ensure_native_layout",
+    "SubboxConfig",
+    "SubboxProcessor",
     "HierarchicalConfig",
     "HierarchicalProcessor",
+    "StyleNBodyEmulatorCore",
+    "StyleNBodyEmulatorVelCore",
     "NBodyEmulatorCore",
     "NBodyEmulatorVelCore",
     "growth_factor",

@@ -1,10 +1,11 @@
 """User-facing factory and bundle: create_emulator / NBodyEmulator.
 
-Counterpart of ``jax_nbody_emulator_with_dj_tpu/emulator.py``.  Ported so
-far: the premodulated displacement and displacement+velocity models
-(``premodulate=True``), with the style fold done at creation, and the
-hierarchical runtime as their processor.  The style (non-premodulated)
-models raise ``NotImplementedError`` naming their ROADMAP item.
+Counterpart of ``jax_nbody_emulator_with_dj_tpu/emulator.py``: the four
+model cores (flexible-cosmology style models by default; premodulated ones,
+with the style fold done at creation, for ``premodulate=True``), each with
+displacement only or displacement+velocity, and the two big-box runtimes as
+their processor (``SubboxConfig`` -> ``SubboxProcessor``,
+``HierarchicalConfig`` -> ``HierarchicalProcessor``).
 """
 
 from __future__ import annotations
@@ -18,18 +19,25 @@ import torch
 
 from .cosmology import growth_factor, vel_norm
 from .hierarchical import HierarchicalConfig, HierarchicalProcessor, resolve_device
-from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
+from .models.cores import (
+    NBodyEmulatorCore,
+    NBodyEmulatorVelCore,
+    StyleNBodyEmulatorCore,
+    StyleNBodyEmulatorVelCore,
+)
 from .ops.style import premodulate_layer, style_vector
-from .utils.params import convert_reference_params, load_params_npz
+from .subbox import SubboxConfig, SubboxProcessor
+from .utils.params import convert_reference_params, load_params_npz, tree_to
 
 
 @dataclass
 class NBodyEmulator:
-    """Bundle of model + params + (optional) hierarchical processor."""
+    """Bundle of model + params + (optional) big-box processor: a
+    ``SubboxProcessor`` or a ``HierarchicalProcessor``."""
 
-    model: NBodyEmulatorCore | NBodyEmulatorVelCore
+    model: object
     params: dict | None
-    processor: HierarchicalProcessor | None
+    processor: SubboxProcessor | HierarchicalProcessor | None
     premodulate: bool = False
     compute_vel: bool = True
     dtype: torch.dtype = torch.float32
@@ -43,27 +51,27 @@ class NBodyEmulator:
         tensor; velocity models return ``(disp, vel)``."""
         if self.params is None:
             raise ValueError("No parameters loaded; pass params= to create_emulator.")
+        z, Om = np.atleast_1d(z), np.atleast_1d(Om)
         Dz = torch.as_tensor(growth_factor(z, Om), dtype=torch.float32)
-        params = _tree_to(self.params, self.device)
+        params = tree_to(self.params, self.device)
         x = x.to(self.device, self.dtype)
+        args = (Dz,) if self.premodulate else (torch.as_tensor(Om, dtype=torch.float32), Dz)
+        if self.compute_vel:
+            args += (torch.as_tensor(vel_norm(z, Om), dtype=torch.float32),)
         with torch.no_grad():
-            if self.compute_vel:
-                vf = torch.as_tensor(vel_norm(z, Om), dtype=torch.float32)
-                return self.model.apply(params, x, Dz, vf)
-            return self.model.apply(params, x, Dz)
+            return self.model.apply(params, x, *args)
 
-    def process_box(self, input_box, z, Om, **kw):
+    def process_box(self, input_box, z, Om, desc="Processing subboxes", show_progress=True,
+                    **kw):
+        """The processor's ``process_box``; ``desc`` and ``show_progress`` reach
+        a ``SubboxProcessor`` only, as in the JAX bundle."""
         if self.processor is None:
             raise ValueError("No processor created; pass processor_config= to create_emulator.")
+        if isinstance(self.processor, SubboxProcessor):
+            kw = dict(kw, desc=desc, show_progress=show_progress)
         return self.processor.process_box(input_box, z, Om, **kw)
 
     __call__ = apply
-
-
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 def default_parameters_path() -> Path:
@@ -146,6 +154,21 @@ def modulate_emulator_parameters_vel(params: dict, z, Om, eps: float = 1e-8) -> 
     return _modulate_tree(params, s, vel=True, eps=eps)
 
 
+def _make_processor(model, params, config, device):
+    """Dispatch a processor_config dataclass to its runtime."""
+    if not isinstance(config, (SubboxConfig, HierarchicalConfig)):
+        raise TypeError(
+            "processor_config must be a SubboxConfig, HierarchicalConfig, or "
+            f"ChunkedHierarchicalConfig, got {type(config).__name__}"
+        )
+    if params is None:
+        raise ValueError("a processor runs the model's parameters: pass params= (or "
+                         "load_params=True) with processor_config=")
+    if isinstance(config, SubboxConfig):
+        return SubboxProcessor(model, params, config, device=device)
+    return HierarchicalProcessor(model, params, config, device=device)
+
+
 def create_emulator(
     premodulate: bool = False,
     compute_vel: bool = True,
@@ -161,8 +184,9 @@ def create_emulator(
     """Build an emulator bundle.
 
     Args:
-        premodulate: fold style into weights at creation (fixed cosmology).
-            Only ``True`` is ported.
+        premodulate: fold style into weights at creation (fixed cosmology);
+            selects the premodulated cores, else the style cores, which take
+            the cosmology per call.
         compute_vel: the model also returns velocities (``process_box`` and
             ``apply`` then return ``(disp, vel)``).
         load_params: load the default parameters (``load_default_parameters``;
@@ -172,18 +196,22 @@ def create_emulator(
             reference's OIDHW ones, converted here;
             ``utils.params.params_from_jax`` converts a JAX tree,
             ``utils.params.load_params_npz`` reads a saved one).
-        processor_config: a ``HierarchicalConfig`` builds the hierarchical
-            runtime for ``process_box``; it needs parameters.
+        processor_config: the runtime of ``process_box``: a ``SubboxConfig``
+            builds a ``SubboxProcessor`` (the reference's semantics), a
+            ``HierarchicalConfig`` a ``HierarchicalProcessor``; either needs
+            parameters.
         premodulate_z / premodulate_Om: fixed cosmology for the fold.
         dtype: compute dtype; ``processor_config.dtype`` wins if present.
         device: torch device of the processor and of ``apply`` (default: the CUDA
             card; raises if there is none.  Pass ``"cpu"`` to run on the CPU).
-        **model_kwargs: forwarded to the model (in_chan, out_chan, mid_chan,
-            eps, levels, data_format).
+        **model_kwargs: forwarded to the model (style_size, in_chan, out_chan,
+            mid_chan, eps, levels, data_format).
     """
-    if not premodulate:
-        raise NotImplementedError("style (non-premodulated) cores are not ported: ROADMAP item A3")
-    model = (NBodyEmulatorVelCore if compute_vel else NBodyEmulatorCore)(**model_kwargs)
+    if premodulate:
+        cls = NBodyEmulatorVelCore if compute_vel else NBodyEmulatorCore
+    else:
+        cls = StyleNBodyEmulatorVelCore if compute_vel else StyleNBodyEmulatorCore
+    model = cls(**model_kwargs)
     device = resolve_device(device)
 
     if params is None and load_params:
@@ -195,7 +223,7 @@ def create_emulator(
             for block in params["params"].values()
             for layer in block.values()
         )
-        if has_style:
+        if premodulate and has_style:
             if premodulate_z is None or premodulate_Om is None:
                 raise ValueError(
                     "premodulate_z and premodulate_Om are required when premodulate=True")
@@ -204,14 +232,7 @@ def create_emulator(
 
     processor = None
     if processor_config is not None:
-        if not isinstance(processor_config, HierarchicalConfig):
-            raise NotImplementedError(
-                f"{type(processor_config).__name__} is not ported: ROADMAP items A5/A6"
-            )
-        if params is None:
-            raise ValueError("a HierarchicalProcessor packs the model's parameters when it is "
-                             "built: pass params= (or load_params=True) with processor_config=")
-        processor = HierarchicalProcessor(model, params, processor_config, device=device)
+        processor = _make_processor(model, params, processor_config, device)
         dtype = processor_config.dtype
     elif dtype is None:
         dtype = torch.float32

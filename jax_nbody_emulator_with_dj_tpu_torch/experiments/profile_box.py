@@ -2,10 +2,12 @@
 ``torch.profiler``, and wall time by phase.
 
     python3 -m jax_nbody_emulator_with_dj_tpu_torch.experiments.profile_box \\
-        [--size 128] [--no-vel] [--no-wino] [--top 25] [--warmups 2] [--no-trace]
+        [--size 128] [--no-vel] [--no-wino] [--style] [--top 25] [--warmups 2] [--no-trace]
 
 Builds the seeded premodulated model at full width (``mid_chan=64``, 3
-levels, bf16; displacement+velocity unless ``--no-vel``) on the runtime's
+levels, bf16; displacement+velocity unless ``--no-vel``; with ``--style`` the
+style model of the same tree, whose per-box fold + pack then lands in the
+trace and in ``phase_ms["fold"]``) on the runtime's
 default geometry (slab 32, tiles of 128^3), warms up with ``--warmups``
 calls, and prints one JSON line.  From one call under ``torch.profiler``
 (CPU and CUDA activities; left out with ``--no-trace``, as a 512^3 box's
@@ -83,7 +85,7 @@ def _trace(emu, box, top):
     return wall, total, ranked(by_op), ranked(by_kernel)
 
 
-def run(size=128, vel=True, wino=None, top=25, warmups=2, trace=True, emit=print):
+def run(size=128, vel=True, wino=None, top=25, warmups=2, trace=True, style=False, emit=print):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the profile needs a GPU")
     card = subprocess.run(
@@ -91,7 +93,7 @@ def run(size=128, vel=True, wino=None, top=25, warmups=2, trace=True, emit=print
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = HierarchicalConfig(size=(size,) * 3, output_dtype=torch.float32, dtype=torch.bfloat16,
                              wino=wino, slab=32, tile=(min(size, 128),) * 3)
-    emu = create_emulator(premodulate=True, compute_vel=vel, params=init_unet(0, style=True),
+    emu = create_emulator(premodulate=not style, compute_vel=vel, params=init_unet(0, style=True),
                           premodulate_z=0.5, premodulate_Om=0.3, device="cuda",
                           processor_config=cfg)
     box = np.random.default_rng(0).standard_normal((3, size, size, size)).astype(np.float32)
@@ -99,7 +101,8 @@ def run(size=128, vel=True, wino=None, top=25, warmups=2, trace=True, emit=print
         emu.process_box(box, 0.5, 0.3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    row = dict(size=size, vel=vel, wino=emu.processor.wino, slab=cfg.slab, tile=list(cfg.tile),
+    row = dict(size=size, vel=vel, style=style, wino=emu.processor.wino, slab=cfg.slab,
+               tile=list(cfg.tile),
                tile1=cfg.tile1, warmups=warmups)
     if trace:
         row["wall_s"], row["device_ms"], row["by_op"], row["by_kernel"] = _trace(emu, box, top)
@@ -126,13 +129,15 @@ def main(argv=None):
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--no-vel", action="store_true", help="the displacement model alone")
     ap.add_argument("--no-wino", action="store_true", help="interior convs through cuDNN")
+    ap.add_argument("--style", action="store_true",
+                    help="the style model: its style folded and packed per box")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--warmups", type=int, default=2, help="calls before the measured ones")
     ap.add_argument("--no-trace", action="store_true",
                     help="leave out the torch.profiler call (phases, launches and memory only)")
     args = ap.parse_args(argv)
     run(args.size, not args.no_vel, False if args.no_wino else None, args.top, args.warmups,
-        not args.no_trace)
+        not args.no_trace, args.style)
 
 
 if __name__ == "__main__":

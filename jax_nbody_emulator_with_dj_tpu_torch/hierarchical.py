@@ -1,10 +1,13 @@
 """Hierarchical big-box runtime: overlap-minimal periodic U-Net evaluation.
 
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/hierarchical.py``, for the
-premodulated displacement and displacement+velocity models on the packed
-path.  The phases, tile anchors and margins are the JAX package's, which is
-what makes the result equal (up to float reordering) to the subbox
-decomposition:
+four model cores on the packed path.  A style (flexible-cosmology) model
+evaluates one style vector per box, so each ``process_box`` call folds the
+style at its (z, Om) into premodulated weights (with the tangent's rank
+factors for velocity) and packs them, on the device; the phases then run as
+for a premodulated model.  The phases, tile anchors and margins are the JAX
+package's, which is what makes the result equal (up to float reordering) to
+the subbox decomposition:
 
   Phase 1  (level-0 encoder on D[/H] slabs): conv_l00/conv_l01/down_l0 on
            slabs of the wrap-padded box, written into the level-1 buffer h1.
@@ -59,8 +62,15 @@ from .models.blocks import (
     pack_resnet_entry_params,
     pack_resnet_params,
 )
-from .models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore
+from .models.cores import (
+    NBodyEmulatorCore,
+    NBodyEmulatorVelCore,
+    StyleNBodyEmulatorCore,
+    StyleNBodyEmulatorVelCore,
+)
 from .ops import s2d
+from .ops.style import style_vector
+from .utils.params import tree_to
 
 
 def _wrap_pad(x, pad: int, axes=(2, 3, 4)):
@@ -138,7 +148,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class HierarchicalProcessor:
-    """Overlap-minimal runtime for the 3-level premodulated models (disp, disp+vel)."""
+    """Overlap-minimal runtime for the 3-level models (premodulated or style;
+    disp or disp+vel)."""
 
     # Level-1 buffer margins (level-1 voxels; W margins are halved in cells).
     PHASE2A_MARGIN = 2
@@ -147,8 +158,10 @@ class HierarchicalProcessor:
     PHASE3_R1_MARGIN_PACKED = 4
 
     def __init__(self, model, params, config: HierarchicalConfig, device=None):
-        if not isinstance(model, NBodyEmulatorCore):  # NBodyEmulatorVelCore is one too
-            raise NotImplementedError("only the premodulated cores are ported: ROADMAP item A3")
+        if not isinstance(model, (NBodyEmulatorCore, NBodyEmulatorVelCore,
+                                  StyleNBodyEmulatorCore, StyleNBodyEmulatorVelCore)):
+            raise TypeError("HierarchicalProcessor supports the premodulated and style "
+                            "emulator cores.")
         if model.levels != 3:
             raise ValueError("hierarchical runtime implements the 3-level topology")
         if not config.packed:
@@ -156,12 +169,29 @@ class HierarchicalProcessor:
         if config.y0_cache:
             raise NotImplementedError("y0_cache is not ported: ROADMAP item A4")
         self.model = model
-        self.compute_vel = isinstance(model, NBodyEmulatorVelCore)
+        self.styled = isinstance(model, (StyleNBodyEmulatorCore, StyleNBodyEmulatorVelCore))
+        self.compute_vel = isinstance(model, (NBodyEmulatorVelCore, StyleNBodyEmulatorVelCore))
         self.config = config
         self.device = resolve_device(device)
         self.wino = config.wino if config.wino is not None else self.device.type == "cuda"
-        self._exec = self._pack_params(params["params"])
+        if self.styled:
+            # the float32 style tree, on the device once; folded and packed per box
+            self.params = tree_to(params, self.device, torch.float32)
+            self._exec = None
+        else:
+            self._exec = self._pack_params(params["params"])
         self.last_timings = {}
+
+    def _fold_exec(self, z, Om):
+        """The style tree folded at (z, Om) and packed: the exec weights of one
+        box.  ``factors=True`` gives the tangent's rank factors, so packing
+        never falls back to the host's factor recovery."""
+        from .emulator import _modulate_tree  # emulator.py imports this module
+
+        s = style_vector(float(Om), float(growth_factor(z, Om)))[0].to(self.device)
+        folded = _modulate_tree(self.params, s, vel=self.compute_vel, eps=self.model.eps,
+                                factors=True)
+        return self._pack_params(folded["params"])
 
     def _pack_params(self, p):
         """Pack the interior layers' weights once, in the compute dtype, on the device."""
@@ -454,8 +484,10 @@ class HierarchicalProcessor:
         """Emulate a full periodic (C, N, N, N) box at redshift z and matter density Om.
 
         Returns the displacement, or ``(disp, vel)`` for a velocity model.
-        With ``profile=True`` the device is synchronised after each phase and
-        the per-phase wall times land in ``self.last_timings`` (seconds).
+        A style model's weights are folded at (z, Om) and packed first, for
+        this call only.  With ``profile=True`` the device is synchronised
+        after each phase and the per-phase wall times land in
+        ``self.last_timings`` (seconds; ``fold`` is the style fold + pack).
         ``donate_input=True`` lets a torch tensor that already lies on the
         device in the compute dtype be scaled in place (do not reuse it), which
         saves one box-sized allocation; for any other input it changes nothing.
@@ -474,6 +506,9 @@ class HierarchicalProcessor:
                 t0 = time.perf_counter()
 
         with torch.no_grad():
+            if self.styled:
+                self._exec = self._fold_exec(z, Om)  # this call's weights, released below
+                stamp("fold")
             box = torch.as_tensor(np.asarray(input_box) if not torch.is_tensor(input_box)
                                   else input_box)
             # upload, then cast on the device: measured faster from 256^3 up than casting on
@@ -509,6 +544,8 @@ class HierarchicalProcessor:
             outs = self._phase3_all(boxp, r1, outs, head)
             del r1
             stamp("phase3")
+            if self.styled:
+                self._exec = None
         outs = tuple(o[0].cpu().numpy() if as_numpy else o[0] for o in outs)
         if profile:
             timings["to_host"] = time.perf_counter() - t0  # the results' copy (as_numpy)

@@ -7,13 +7,16 @@ to match the VALID-conv shrinkage of the main path (conv3 -> act -> conv3 ->
 ``'UA'`` (2x up conv).  Parameters are nested dicts with the JAX package's
 keys and DHWIO kernels: ``{'skip': {...}, 'conv_0': {...}, 'conv_1': {...}}``.
 
+Styled layers (``style_weight``, ``style_bias``) take the batch's style
+vectors ``s`` (B, S) and run ``conv(x * m, W) / n + b``: one batch-shared
+conv between the per-channel scales of ``ops/style.py::style_modulation``.
 Velocity ("premod-vel") layers carry a baked tangent kernel ``dweight`` and
 thread a (primal, tangent) pair: ``y = conv(x, W) + b``, ``dy = conv(x, dW) +
 conv(dx, W)``.
 
 The second half holds the packed (space-to-depth) forms the hierarchical
-runtime runs, with weights packed once per processor build.  Styled layers
-are not ported yet (ROADMAP item A3).
+runtime runs, with premodulated weights packed once per processor build (per
+box for a style model, whose style is folded at the box's cosmology first).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..ops.conv3d import (
     leaky_relu,
     leaky_relu_with_tangent,
 )
-from ..ops.style import recover_dweight_factors
+from ..ops.style import recover_dweight_factors, style_modulation
 from ..ops.winograd import transform_packed_w3
 from ..ops.winograd_cuda import conv3d_wino_packed, conv3d_wino_pair_packed, tile_wh
 
@@ -55,14 +58,15 @@ def _run_conv(x, w, kind, in_fmt="NDHWC", out_fmt="NDHWC"):
 # ---------------------------------------------------------------------------
 
 
-def init_conv_layer(rng, cin, cout, kind, *, style: bool, style_size: int = 2):
-    """Random init of one conv layer's float32 params from a numpy Generator."""
+def init_conv_layer(rng, cin, cout, kind, *, style: bool, vel: bool = False,
+                    style_size: int = 2):
+    """Random init of one conv layer's float32 params from a numpy Generator;
+    ``vel`` without ``style`` adds a learned tangent kernel ``dweight``."""
     ksz = _KSIZE[kind]
     std = math.sqrt(1.0 / (cin * ksz**3))
+    shape = (ksz, ksz, ksz, cin, cout)
     p = {
-        "weight": torch.from_numpy(
-            (rng.standard_normal((ksz, ksz, ksz, cin, cout)) * std).astype(np.float32)
-        ),
+        "weight": torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)),
         "bias": torch.zeros(cout),
     }
     if style:
@@ -70,6 +74,8 @@ def init_conv_layer(rng, cin, cout, kind, *, style: bool, style_size: int = 2):
             (rng.standard_normal((cin, style_size)) * math.sqrt(1.0 / style_size)).astype(np.float32)
         )
         p["style_bias"] = torch.ones(cin)
+    elif vel:
+        p["dweight"] = torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
     return p
 
 
@@ -86,17 +92,21 @@ def _resnet_channel_plan(seq, cin, cout):
     return main_seq, num_conv, plan
 
 
-def init_resnet_block(rng, seq, cin, cout, *, style: bool, style_size: int = 2):
+def init_resnet_block(rng, seq, cin, cout, *, style: bool, vel: bool = False,
+                      style_size: int = 2):
     _, _, plan = _resnet_channel_plan(seq, cin, cout)
-    params = {"skip": init_conv_layer(rng, cin, cout, "skip", style=style, style_size=style_size)}
+    kw = dict(style=style, vel=vel, style_size=style_size)
+    params = {"skip": init_conv_layer(rng, cin, cout, "skip", **kw)}
     for i, (ci, co) in enumerate(plan):
-        params[f"conv_{i}"] = init_conv_layer(rng, ci, co, "conv", style=style, style_size=style_size)
+        params[f"conv_{i}"] = init_conv_layer(rng, ci, co, "conv", **kw)
     return params
 
 
-def init_resample_block(rng, seq, cin, cout, *, style: bool, style_size: int = 2):
+def init_resample_block(rng, seq, cin, cout, *, style: bool, vel: bool = False,
+                        style_size: int = 2):
     kind = "down" if "D" in seq else "up"
-    return {"conv_0": init_conv_layer(rng, cin, cout, kind, style=style, style_size=style_size)}
+    return {"conv_0": init_conv_layer(rng, cin, cout, kind, style=style, vel=vel,
+                                      style_size=style_size)}
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +114,22 @@ def init_resample_block(rng, seq, cin, cout, *, style: bool, style_size: int = 2
 # ---------------------------------------------------------------------------
 
 
-def apply_conv_layer(p, x, kind, *, in_fmt="NDHWC", out_fmt="NDHWC"):
-    """One premodulated conv layer (+ float32 bias), in ``x``'s dtype."""
-    bias = p["bias"].float()
-    bias = bias[:, None, None, None] if out_fmt == "NCDHW" else bias
-    return (_run_conv(x, p["weight"], kind, in_fmt, out_fmt) + bias).to(x.dtype)
+def _bcast_channels(v, fmt: str):
+    """(C,) or (B, C) -> broadcastable against a 5-D tensor in ``fmt``."""
+    if fmt == "NCDHW":
+        return v[..., None, None, None]
+    return v if v.dim() == 1 else v[:, None, None, None, :]
+
+
+def apply_conv_layer(p, x, kind, *, s=None, eps: float = 1e-8, in_fmt="NDHWC", out_fmt="NDHWC"):
+    """One conv layer (+ float32 bias), in ``x``'s dtype; styled iff ``s``
+    (B, S) is given: ``conv(x * m, W) / n + b``, with one batch-shared conv."""
+    bias = _bcast_channels(p["bias"].float(), out_fmt)
+    if s is None:
+        return (_run_conv(x, p["weight"], kind, in_fmt, out_fmt) + bias).to(x.dtype)
+    m, norm = style_modulation(p, s, eps)  # (B, Ci), (B, Co) float32
+    z = _run_conv(x * _bcast_channels(m, in_fmt).to(x.dtype), p["weight"], kind, in_fmt, out_fmt)
+    return (z / _bcast_channels(norm, out_fmt) + bias).to(x.dtype)
 
 
 def apply_conv_layer_vel(p, x, dx, kind, *, in_fmt="NDHWC", out_fmt="NDHWC"):
@@ -147,12 +168,14 @@ def _center_crop(t, spatial, fmt: str = "NDHWC"):
     return t[tuple(slices)]
 
 
-def apply_resnet_block(p, x, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
-    """Primal ResNet block; the first conv (and skip) read ``in_fmt``, the last
-    conv (and skip) write ``out_fmt``, interior activations are channels-last."""
+def apply_resnet_block(p, x, seq, *, s=None, eps: float = 1e-8, in_fmt="NDHWC",
+                       out_fmt="NDHWC"):
+    """Primal ResNet block (styled iff ``s`` is given); the first conv (and
+    skip) read ``in_fmt``, the last conv (and skip) write ``out_fmt``,
+    interior activations are channels-last."""
     main_seq, num_conv, _ = _resnet_channel_plan(seq, 0, 0)
     last_act = seq.endswith("A") and main_seq != seq
-    y = apply_conv_layer(p["skip"], x, "skip", in_fmt=in_fmt, out_fmt=out_fmt)
+    y = apply_conv_layer(p["skip"], x, "skip", s=s, eps=eps, in_fmt=in_fmt, out_fmt=out_fmt)
     if num_conv > 0:
         target = tuple(y.shape[ax] - 2 * num_conv for ax in _spatial_axes(out_fmt))
         y = _center_crop(y, target, out_fmt)
@@ -161,7 +184,8 @@ def apply_resnet_block(p, x, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
         if op == "C":
             fi = in_fmt if conv_idx == 0 else "NDHWC"
             fo = out_fmt if conv_idx == num_conv - 1 else "NDHWC"
-            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, "conv", in_fmt=fi, out_fmt=fo)
+            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, "conv", s=s, eps=eps, in_fmt=fi,
+                                 out_fmt=fo)
             conv_idx += 1
         elif op == "A":
             x = leaky_relu(x)
@@ -199,13 +223,13 @@ def apply_resnet_block_vel(p, x, dx, seq, *, in_fmt="NDHWC", out_fmt="NDHWC"):
     return x, dx
 
 
-def apply_resample_block(p, x, seq):
+def apply_resample_block(p, x, seq, *, s=None, eps: float = 1e-8):
     """Primal resample block: 'DA' (down) or 'UA' (up); channels-last."""
     conv_idx = 0
     for op in seq:
         if op in ("D", "U"):
             kind = "down" if op == "D" else "up"
-            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, kind)
+            x = apply_conv_layer(p[f"conv_{conv_idx}"], x, kind, s=s, eps=eps)
             conv_idx += 1
         elif op == "A":
             x = leaky_relu(x)

@@ -56,37 +56,40 @@ def unet_block_plan(levels: int = 3, in_chan: int = 3, out_chan: int = 3, mid_ch
 
 
 def init_unet(seed: int, *, levels=3, in_chan=3, out_chan=3, mid_chan=64,
-              style: bool, style_size: int = 2):
+              style: bool, vel: bool = False, style_size: int = 2):
     """Seeded random float32 parameter tree (lecun-normal kernels, zero biases;
-    ``style`` adds the style weights the premodulation fold consumes)."""
+    ``style`` adds the style weights, ``vel`` without ``style`` a learned
+    tangent kernel ``dweight`` per layer)."""
     rng = np.random.default_rng(seed)
     params = {}
     for name, btype, seq, cin, cout in unet_block_plan(levels, in_chan, out_chan, mid_chan):
         init = init_resnet_block if btype == "resnet" else init_resample_block
-        params[name] = init(rng, seq, cin, cout, style=style, style_size=style_size)
+        params[name] = init(rng, seq, cin, cout, style=style, vel=vel, style_size=style_size)
     return {"params": params}
 
 
-def unet_forward(params, x, *, levels: int = 3, io_fmt: str = "NCDHW"):
-    """Premodulated U-Net forward on an input-scaled 5-D tensor in ``io_fmt``."""
+def unet_forward(params, x, *, s=None, levels: int = 3, eps: float = 1e-8, io_fmt: str = "NCDHW"):
+    """U-Net forward on an input-scaled 5-D tensor in ``io_fmt``: premodulated,
+    or styled by the batch's style vectors ``s`` (B, S) when given."""
     p = params["params"]
-    h = apply_resnet_block(p["conv_l00"], x, "CACA", in_fmt=io_fmt)
-    h = apply_resnet_block(p["conv_l01"], h, "CACA")
+    kw = dict(s=s, eps=eps)
+    h = apply_resnet_block(p["conv_l00"], x, "CACA", in_fmt=io_fmt, **kw)
+    h = apply_resnet_block(p["conv_l01"], h, "CACA", **kw)
     skips = [h]
-    h = apply_resample_block(p["down_l0"], h, "DA")
+    h = apply_resample_block(p["down_l0"], h, "DA", **kw)
     for i in range(1, levels):
-        y = apply_resnet_block(p[f"conv_l{i}"], h, "CACA")
+        y = apply_resnet_block(p[f"conv_l{i}"], h, "CACA", **kw)
         skips.append(y)
-        h = apply_resample_block(p[f"down_l{i}"], y, "DA")
-    h = apply_resnet_block(p["conv_c"], h, "CACA")
+        h = apply_resample_block(p[f"down_l{i}"], y, "DA", **kw)
+    h = apply_resnet_block(p["conv_c"], h, "CACA", **kw)
     for i in range(levels - 1, 0, -1):
-        h = apply_resample_block(p[f"up_r{i}"], h, "UA")
+        h = apply_resample_block(p[f"up_r{i}"], h, "UA", **kw)
         h = torch.cat([_center_crop(skips[i], h.shape[1:4]), h], dim=-1)
-        h = apply_resnet_block(p[f"conv_r{i}"], h, "CACA")
-    h = apply_resample_block(p["up_r0"], h, "UA")
+        h = apply_resnet_block(p[f"conv_r{i}"], h, "CACA", **kw)
+    h = apply_resample_block(p["up_r0"], h, "UA", **kw)
     h = torch.cat([_center_crop(skips[0], h.shape[1:4]), h], dim=-1)
-    h = apply_resnet_block(p["conv_r00"], h, "CACA")
-    return apply_resnet_block(p["conv_r01"], h, "CAC", out_fmt=io_fmt)
+    h = apply_resnet_block(p["conv_r00"], h, "CACA", **kw)
+    return apply_resnet_block(p["conv_r01"], h, "CAC", out_fmt=io_fmt, **kw)
 
 
 def unet_forward_vel(params, x, *, levels: int = 3, io_fmt: str = "NCDHW"):

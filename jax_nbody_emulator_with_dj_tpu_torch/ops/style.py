@@ -2,9 +2,11 @@
 
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/ops/style.py``: a styled conv
 is ``conv(x * m, W) / n`` with input-channel scales ``m`` and demodulation
-norms ``n``; the premodulation fold bakes ``W * m / n`` into a fixed-cosmology
-weight, and for velocity models its d/dDz tangent ``dweight``.  The fold math
-runs in float32 on whatever device the weights lie on; the factor recovery
+norms ``n`` (the same as a conv with the per-sample weight ``W * m / n``,
+which the style models never build); the premodulation fold bakes
+``W * m / n`` into a fixed-cosmology weight, and for velocity models its
+d/dDz tangent ``dweight``.  The modulation and the fold run in float32 on
+whatever device the weights lie on; the factor recovery
 (``recover_dweight_factors``) in float64 numpy on the host.
 """
 
@@ -32,9 +34,21 @@ def _m_r(layer_params, s):
 
 
 def style_modulation(layer_params, s, eps: float = 1e-8):
-    """(m (B, Cin), norm (B, Cout)) float32 scales for a styled conv layer."""
+    """Per-channel scales of a styled conv layer for a batch of style vectors.
+
+    ``s`` is (B, S); returns the input-channel scales ``m`` (B, Cin) and the
+    demodulation norms ``norm`` (B, Cout), float32.
+    """
     m, r, _ = _m_r(layer_params, s)
     return m, torch.sqrt((m * m) @ r + eps)
+
+
+def modulated_style_weight(layer_params, s, eps: float = 1e-8):
+    """The demodulated per-sample weight ``W * m / n``, (B, K, K, K, Cin, Cout)
+    float32.  For the fold's tests only: the styled forward never builds it."""
+    m, norm = style_modulation(layer_params, s, eps)
+    w = layer_params["weight"].float()
+    return w[None] * m[:, None, None, None, :, None] / norm[:, None, None, None, None, :]
 
 
 def premodulate_layer(layer_params, s, *, vel: bool = False, first_layer: bool = False,

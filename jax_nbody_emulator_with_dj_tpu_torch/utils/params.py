@@ -62,6 +62,14 @@ def tree_cast(params, dtype):
     return v.to(dtype) if v.is_floating_point() else v
 
 
+def tree_to(tree, device, dtype=None):
+    """Every leaf on ``device``; floating leaves also cast to ``dtype`` if given."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    v = _leaf(tree)
+    return v.to(device=device, dtype=dtype if dtype is not None and v.is_floating_point() else None)
+
+
 def save_params_npz(path, params: dict) -> None:
     """Save a tree in the JAX package's ``.npz`` format (a pickled dict)."""
 

@@ -276,8 +276,13 @@ def test_processor_needs_parameters():
     with pytest.raises(ValueError, match="params="):
         create_emulator(premodulate=True, compute_vel=False, load_params=False,
                         processor_config=cfg, mid_chan=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):  # the style cores still wait
-        create_emulator(premodulate=False, load_params=False, device="cpu")
+    # the reference's default model, the style disp+vel core, without parameters: as in JAX
+    emu = create_emulator(premodulate=False, load_params=False, device="cpu")
+    jemu = jcreate(premodulate=False, load_params=False)
+    assert type(emu.model).__name__ == type(jemu.model).__name__ == "StyleNBodyEmulatorVelCore"
+    assert emu.params is None and emu.processor is None
+    assert (emu.premodulate, emu.compute_vel) == (jemu.premodulate, jemu.compute_vel)
+    assert (emu.premodulate, emu.compute_vel) == (False, True)
 
 
 # ---------------------------------------------------------------------------

@@ -339,7 +339,9 @@ def _learned_vel_tree():
 @pytest.mark.parametrize("kw,item", [
     (dict(compute_vel=True, params=_learned_vel_tree,
           processor_config=HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8))), "A11"),
-    (dict(premodulate=False, compute_vel=False), "A3"),
+    (dict(compute_vel=False,
+          processor_config=HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8),
+                                              packed=False)), "A4"),
 ])
 def test_unported_emulators_raise(style4, kw, item):
     args = dict(premodulate=True, params=params_from_jax(style4), premodulate_z=Z,
@@ -347,6 +349,26 @@ def test_unported_emulators_raise(style4, kw, item):
     kw = {k: v() if callable(v) else v for k, v in kw.items()}
     with pytest.raises(NotImplementedError, match=item):
         create_emulator(**{**args, **kw})
+
+
+def test_style_emulator_is_ported(style4, box):
+    """``premodulate=False`` builds the style disp core, whose forward and
+    runtime equal the premodulated ones with the style folded at the same
+    (z, Om): the displacement bit for bit on the runtime, rtol 1e-5 / atol 1e-6
+    for the model's forward (a fold against modulation around one conv)."""
+    style = create_emulator(premodulate=False, compute_vel=False, params=params_from_jax(style4),
+                            mid_chan=4, device="cpu")
+    assert type(style.model).__name__ == "StyleNBodyEmulatorCore" and not style.premodulate
+    premod = create_emulator(premodulate=True, compute_vel=False, params=params_from_jax(style4),
+                             premodulate_z=Z, premodulate_Om=OM, mid_chan=4, device="cpu")
+    x = _wrap_pad(torch.from_numpy(box)[None], 48)
+    np.testing.assert_allclose(style.apply(x, Z, OM).numpy(), premod.apply(x, Z, OM).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8), dtype=torch.float32,
+                             output_dtype=torch.float32)
+    style = create_emulator(premodulate=False, compute_vel=False, params=params_from_jax(style4),
+                            processor_config=cfg, mid_chan=4, device="cpu")
+    np.testing.assert_array_equal(style.process_box(box, Z, OM), _port_box(style4, 4, box))
 
 
 @pytest.mark.parametrize("kw", [dict(packed=False), dict(y0_cache=True)])
