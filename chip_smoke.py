@@ -27,7 +27,16 @@ subbox runtime on the card (the style forward, its velocity by
 ``torch.func.jvp``), and the style bf16 subbox against the float32 one; and
 128^3 style disp and vel boxes through ``create_emulator(premodulate=False)``
 -> ``HierarchicalProcessor.process_box``, whose per-box fold feeds B1 / B2,
-timed, against the premodulated model folded at the same (z, Om).
+timed, against the premodulated model folded at the same (z, Om).  Then the
+other big-box runtimes (``runtimes``: the unpacked and y0-cached paths, 16^3
+float32 against the packed run, 128^3 bf16 y0 cache on against off and
+unpacked against packed; ``chunked``: 256^3 vel in two chunks against the
+monolithic box, with a resume round trip; ``learned_vel``: a learned-dweight
+velocity tree, whose tangent runs B1 three times a site, kernels on against
+off) and the geometry planner (``planner``: every measured peak against its
+estimate and ``memory_audit``, and the plans for 512^3 and 1024^3 on this
+card).  B1 and B2 are also held against their plain versions at the y0
+strip's conv shape and at a learned-tangent site.
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -61,7 +70,11 @@ CSRC = "jax_nbody_emulator_with_dj_tpu_torch/csrc/"
 JAX_OPS = "jax_nbody_emulator_with_dj_tpu/ops/"
 PHASE3 = (1, 142, 142, 71, 128)  # xp of the first conv of a 128^3 phase-3 tile
 PHASE2A = (1, 68, 68, 34, 128)
+# xp of conv_l01's first conv in a y0 strip segment: 128^3 box, tile H 128, segments of
+# y0_slab_h = 68 rows (the strip's shapes: (142,74,71), (140,72,70), (138,70,69))
+Y0_STRIP = (1, 140, 72, 70, 128)
 RAGGED = (2, 13, 16, 21, 128)
+PEAK_BOUND = 1.3  # the planner's estimate may exceed a measured peak by at most this factor
 RUNS = 5  # warm process_box calls timed per configuration (median reported)
 
 
@@ -171,13 +184,24 @@ def phase_kernel():
         ("f2_136_ragged_columns", RAGGED, 136, True, False, bf16, False, False, False),
         ("odd_tiles", (1, 9, 11, 7, 128), 128, True, True, f32, False, True, True),
         ("odd_tiles_c256", (1, 9, 11, 7, 256), 136, True, True, bf16, False, True, False),
+        # the y0-cached disp path's strip
+        ("y0_strip_conv_l01", Y0_STRIP, 128, True, True, bf16, False, True, True),
     ]
     cases += [("ragged", RAGGED, 128, b, lk, od, False, od == bf16, lk)
               for b in (True, False) for lk in (True, False) for od in (bf16, f32)]
+    # a learned-dweight site: the tangent's two B1 launches (no bias, no act), on the
+    # concat weight's parts of a seeded learned tree's conv_l1, at phase 2a's shape
+    learned = _learned_site_weights(dev)
+    cases += [(f"learned_tangent_{part}", PHASE2A, 128, False, False, bf16, False, True, False)
+              for part in ("dW", "W")]
     rows = []
     for name, shape, f2, use_b, leaky, od, timed, tiled, view in cases:
         xp = _rand_view(shape, gen, dev, view)
-        wh, wt, w_oidhw = weight(shape[-1], f2)
+        if name.startswith("learned_tangent_"):
+            wt = learned[name.rsplit("_", 1)[1]]
+            wh, w_oidhw = wt.untiled(), None
+        else:
+            wh, wt, w_oidhw = weight(shape[-1], f2)
         b = torch.randn(f2 // 2, generator=gen, device=dev) * 0.1 if use_b else None
         got = conv3d_wino_packed(xp, wt if tiled else wh, b, leaky=leaky, out_dtype=od)
         ref = conv3_packed_wino(xp, wh, b, leaky=leaky, out_dtype=od)
@@ -203,6 +227,18 @@ def phase_kernel():
         del xp, got, ref
     torch.cuda.empty_cache()
     return rows
+
+
+def _learned_site_weights(dev):
+    """The tiled Winograd pieces of concat(dW, W) of conv_l1's first conv in a
+    seeded learned-dweight velocity tree, as the model packs them:
+    ``{"dW": ..., "W": ...}``."""
+    from jax_nbody_emulator_with_dj_tpu_torch.models.blocks import pack_conv_layer_params
+    from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
+
+    p = init_unet(3, style=False, vel=True)["params"]["conv_l1"]["conv_0"]
+    pp = pack_conv_layer_params(p, "conv", vel=True, wino=True, dtype=torch.bfloat16, device=dev)
+    return dict(zip(("dW", "W"), pp["whcat"]))
 
 
 def _pair_errors(got, ref, fp32):
@@ -263,6 +299,8 @@ def phase_pair_kernel():
         ("f2_136_ragged_columns", RAGGED, 136, True, False, bf16, False, False),
         ("odd_tiles", (1, 9, 11, 7, 128), 128, True, True, f32, False, True),
         ("odd_tiles_c256", (1, 9, 11, 7, 256), 136, True, True, bf16, False, True),
+        # the y0-cached vel path's strip (a window of the padded box, as the runtime reads it)
+        ("y0_strip_conv_l01", Y0_STRIP, 128, True, True, bf16, False, True),
     ]
     cases += [("ragged", (2, 13, 16, 21, 128), f2, bc, lk, od, False, view)
               for f2, bc, lk, od, view in (
@@ -613,15 +651,17 @@ def _rms(a, b):
     return float((a.astype(np.float64) - b).std() / b.astype(np.float64).std())
 
 
-def _emulator(vel, seed, style=False, **kw):
+def _emulator(vel, seed, style=False, learned=False, **kw):
     """A seeded full-width model on the card: premodulated at (z, Om) = (0.5, 0.3),
-    or with ``style`` the style model, which takes the cosmology per call."""
+    or with ``style`` the style model, which takes the cosmology per call; with
+    ``learned`` a premodulated velocity tree whose tangent kernels are learned
+    (``dweight`` without the fold's rank structure)."""
     from jax_nbody_emulator_with_dj_tpu_torch import create_emulator
     from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
 
-    return create_emulator(premodulate=not style, compute_vel=vel,
-                           params=init_unet(seed, style=True), premodulate_z=0.5,
-                           premodulate_Om=0.3, device="cuda", **kw)
+    params = init_unet(seed, style=False, vel=True) if learned else init_unet(seed, style=True)
+    return create_emulator(premodulate=not style, compute_vel=vel, params=params,
+                           premodulate_z=0.5, premodulate_Om=0.3, device="cuda", **kw)
 
 
 def _config(n, **kw):
@@ -665,22 +705,50 @@ def phase_small_box(vel):
             raise RuntimeError(f"16^3 box (vel={vel}, wino={wino}) vs model forward: {errs}")
 
 
-def _timed_box(vel, n, wino, seed=0, runs=RUNS, style=False, **cfg_kw):
-    """Warm-up, then ``runs`` process_box calls (the first with the kernel
-    counts set to 0 just before and read just after), then one profiled call."""
+# Every full-width box whose peak this run measures, for the planner phase:
+# (label, config, vel, learned tangent, measured peak, estimate, memory_audit max_total).
+PEAKS = []
+
+
+def _record_peak(label, cfg, vel, proc, peak):
+    """The planner's estimate of ``cfg`` (``experiments/profile_box.py``: a
+    chunked config's inner run plus the staged next chunk) and the inner
+    processor's ``memory_audit`` beside the measured peak."""
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments.profile_box import estimate
+
+    est = estimate(cfg, vel, learned_tangent=proc.learned_tangent)
+    PEAKS.append(dict(box=label, vel=vel, learned_tangent=proc.learned_tangent, peak=peak,
+                      estimate=est, audit_max_total=proc.memory_audit()["max_total"]))
+
+
+def _launch_counts():
     from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda as wc
 
+    return dict(B1=wc.conv3d_wino_packed.launches, B2=wc.conv3d_wino_pair_packed.launches)
+
+
+def _reset_counts():
+    from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda as wc
+
+    wc.conv3d_wino_packed.launches = wc.conv3d_wino_pair_packed.launches = 0
+
+
+def _timed_box(vel, n, wino, seed=0, runs=RUNS, style=False, learned=False, label=None,
+               **cfg_kw):
+    """Warm-up, then ``runs`` process_box calls (the first with the kernel
+    counts set to 0 just before and read just after, and the peak of
+    ``torch.cuda.max_memory_allocated``), then one profiled call."""
     box = np.random.default_rng(seed).standard_normal((3, n, n, n)).astype(np.float32)
-    emu = _emulator(vel, seed, style=style,
-                    processor_config=_config(n, dtype=torch.bfloat16, wino=wino, **cfg_kw))
+    cfg = _config(n, dtype=torch.bfloat16, wino=wino, **cfg_kw)
+    emu = _emulator(vel, seed, style=style, learned=learned, processor_config=cfg)
     emu.process_box(box, 0.5, 0.3)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wc.conv3d_wino_packed.launches = wc.conv3d_wino_pair_packed.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     out = emu.process_box(box, 0.5, 0.3)  # returns numpy: ends in a sync
     walls = [time.perf_counter() - t0]
-    launches = dict(B1=wc.conv3d_wino_packed.launches, B2=wc.conv3d_wino_pair_packed.launches)
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for _ in range(runs - 1):
         t0 = time.perf_counter()
@@ -689,9 +757,13 @@ def _timed_box(vel, n, wino, seed=0, runs=RUNS, style=False, **cfg_kw):
     emu.process_box(box, 0.5, 0.3, profile=True)
     phases = {k: round(v * 1e3, 3) for k, v in emu.processor.last_timings.items()}
     wall = float(np.median(walls))
-    log("style_slice" if style else "slice", vel=vel, wino=emu.processor.wino, size=n,
-        mid_chan=64, dtype="bfloat16", median_wall_s=wall, walls_s=walls,
-        voxels_per_s=n**3 / wall, launches=launches, phase_ms=phases, max_memory_allocated=peak)
+    label = label or ("style_slice" if style else "slice")
+    log(label, vel=vel, wino=emu.processor.wino, size=n, mid_chan=64, dtype="bfloat16",
+        packed=cfg.packed, y0_cache=cfg.y0_cache, tile=list(cfg.tile), learned_tangent=learned,
+        median_wall_s=wall, walls_s=walls, voxels_per_s=n**3 / wall, launches=launches,
+        phase_ms=phases, max_memory_allocated=peak)
+    _record_peak(f"{label}_{n}_{'vel' if vel else 'disp'}_wino_{emu.processor.wino}", cfg, vel,
+                 emu.processor, peak)
     out = _check_box(out, n, vel, f"{n}^3 box")
     del emu
     torch.cuda.empty_cache()
@@ -726,10 +798,11 @@ def phase_slice(vel):
 def phase_vel_256():
     """One 256^3 velocity box: phase 1's packed-W output width (130) is above
     the JAX package's threshold for its pair kernel; the port has none, so
-    every pair site runs B2 and B1 is not launched."""
-    _, launches = _timed_box(True, 256, None, runs=1, slab=32, tile=(128,) * 3)
+    every pair site runs B2 and B1 is not launched.  Returns its output."""
+    out, launches = _timed_box(True, 256, None, runs=1, slab=32, tile=(128,) * 3)
     if launches["B1"] != 0 or launches["B2"] <= 0:
         raise RuntimeError(f"256^3 vel box: expected B2 at every pair site and no B1: {launches}")
+    return out
 
 
 def _style_box(vel, n, box, cfg):
@@ -800,6 +873,186 @@ def phase_style_slice(premodulated):
     return launches
 
 
+def _kernel_gates(vel, got, ref):
+    """The kernel path's gates: disp rel max < 0.02, vel rms < 0.08."""
+    errs = dict(disp_rel_max_err=_rel(got[0], ref[0]), disp_gate=GATE_SLICE)
+    ok = errs["disp_rel_max_err"] < GATE_SLICE
+    if vel:
+        errs.update(vel_rms_err=_rms(got[1], ref[1]), vel_gate=GATE_VEL,
+                    vel_rel_max_err=_rel(got[1], ref[1]))
+        ok = ok and errs["vel_rms_err"] < GATE_VEL
+    return errs, ok
+
+
+def phase_runtimes(packed_on):
+    """The unpacked and y0-cached hierarchical paths.  16^3 float32 boxes (kernels
+    off) through each against the packed monolithic run of the same model, at
+    the 16^3 gates (disp rel max < 2e-4, vel rms < 1e-3; the y0 cache at a tile
+    that splits W into 4); then 128^3 bf16 disp and vel with tile (128, 128,
+    64) (two W tiles share each strip), y0 cache on against off at the kernel
+    gates, B1 (disp) and B2 (vel) launching in both; then 128^3 disp and vel
+    unpacked (cuDNN, no kernel) against ``packed_on[vel]``, the ``slice``
+    phase's kernels-on output.
+    Returns the launches per box of each path."""
+    n = 16
+    box = np.random.default_rng(1).standard_normal((3, n, n, n)).astype(np.float32)
+    for vel in (False, True):
+        def run(**kw):
+            cfg = _config(n, slab=8, dtype=torch.float32, wino=False, **{"tile": (8, 8, 8), **kw})
+            return _check_box(_emulator(vel, 1, processor_config=cfg).process_box(box, 0.5, 0.3),
+                              n, vel, "16^3 box")
+
+        ref = run()
+        for name, kw in (("unpacked", dict(packed=False)),
+                         ("y0_cache", dict(y0_cache=True, tile=(8, 8, 4))),
+                         ("unpacked_y0_cache", dict(packed=False, y0_cache=True, tile=(8, 8, 4)))):
+            out = run(**kw)
+            errs = dict(disp_rel_max_err=_rel(out[0], ref[0]), disp_gate=2e-4)
+            ok = errs["disp_rel_max_err"] < 2e-4
+            if vel:
+                errs.update(vel_rms_err=_rms(out[1], ref[1]), vel_gate=GATE_F32_VEL,
+                            vel_rel_max_err=_rel(out[1], ref[1]))
+                ok = ok and errs["vel_rms_err"] < GATE_F32_VEL
+            log("runtimes_small_box_vs_packed", vel=vel, run=name, size=n, **errs)
+            if not ok:
+                raise RuntimeError(f"16^3 {name} box (vel={vel}) vs packed: {errs}")
+    launches = {}
+    tile = (128, 128, 64)
+    for vel in (False, True):
+        kind, kernel = ("vel", "B2") if vel else ("disp", "B1")
+        outs = {}
+        for y0 in (False, True):
+            key = f"{kind}128_tile64_y0_{y0}"
+            outs[y0], launches[key] = _timed_box(vel, 128, None, runs=3, slab=32, tile=tile,
+                                                 y0_cache=y0, label="runtimes_y0_cache")
+            if launches[key][kernel] <= 0:
+                raise RuntimeError(f"{key}: {kernel} launched 0 times")
+        errs, ok = _kernel_gates(vel, outs[True], outs[False])
+        log("runtimes_y0_cache_compare", vel=vel, size=128, tile=list(tile), **errs)
+        if not ok:
+            raise RuntimeError(f"128^3 {kind} y0 cache on vs off: {errs}")
+    for vel in (False, True):
+        out, lc = _timed_box(vel, 128, None, runs=3, slab=32, tile=(128,) * 3, packed=False,
+                             label="runtimes_unpacked")
+        launches[f"{'vel' if vel else 'disp'}128_unpacked"] = lc
+        if any(lc.values()):
+            raise RuntimeError(f"the unpacked path launched a kernel: {lc}")
+        errs, ok = _kernel_gates(vel, out, packed_on[vel])
+        log("runtimes_unpacked_vs_packed", vel=vel, size=128, **errs)
+        if not ok:
+            raise RuntimeError(f"128^3 unpacked (vel={vel}) vs packed: {errs}")
+    return launches
+
+
+def phase_chunked(mono):
+    """The chunked runtime at full width: 256^3 vel bf16, ``chunks=(2, 1, 1)``
+    (pad 48, inner (224, 256, 256)), through ``create_emulator`` against
+    ``mono``, the 256^3 monolithic box of ``phase_vel_256``, at the kernel
+    gates.  Its first call writes a resume directory (and warms up); the timed
+    call (kernel counts set to 0 just before, peak memory) must equal it byte
+    for byte; a second call on the directory must return the same bytes
+    without any inner run (``profile_box.py --chunks 2 1 1`` gives its
+    phases).  The host gather runs the native staging helper, which must
+    have built.  Returns the launches per box."""
+    import tempfile
+
+    from jax_nbody_emulator_with_dj_tpu_torch import ChunkedHierarchicalConfig
+    from jax_nbody_emulator_with_dj_tpu_torch.native import native_staging_available
+
+    if not native_staging_available():
+        raise RuntimeError("the native staging helper did not build (g++)")
+    n = 256
+    box = np.random.default_rng(0).standard_normal((3, n, n, n)).astype(np.float32)
+    cfg = ChunkedHierarchicalConfig(size=(n,) * 3, chunks=(2, 1, 1), dtype=torch.bfloat16,
+                                    output_dtype=torch.float32)
+    emu = _emulator(True, 0, processor_config=cfg)
+    proc = emu.processor
+    with tempfile.TemporaryDirectory() as rdir:
+        first = emu.process_box(box, 0.5, 0.3, resume_dir=rdir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = emu.process_box(box, 0.5, 0.3)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        inner_runs = []
+        real = proc.inner.process_box
+        proc.inner.process_box = lambda *a, **k: inner_runs.append(1) or real(*a, **k)
+        resumed = emu.process_box(box, 0.5, 0.3, resume_dir=rdir)
+        proc.inner.process_box = real
+    same = all(np.array_equal(a, b) for a, b in zip(first, out))
+    resumed_same = all(np.array_equal(a, b) for a, b in zip(resumed, first))
+    errs, ok = _kernel_gates(True, _check_box(out, n, True, "chunked 256^3 box"), mono)
+    log("chunked", vel=True, size=n, chunks=list(cfg.chunks), pad=cfg.pad,
+        inner_size=list(cfg.inner_size), inner_tile=list(proc.inner.config.tile),
+        inner_tile1=proc.inner.config.tile1, wall_s=wall, voxels_per_s=n**3 / wall,
+        launches=launches, max_memory_allocated=peak,
+        repeat_equal=same, resume_equal=resumed_same, resume_inner_runs=len(inner_runs),
+        native_staging=True, **errs)
+    _record_peak("chunked_256_vel_211", cfg, True, proc.inner, peak)
+    if launches["B2"] <= 0:
+        raise RuntimeError(f"the chunked vel box launched B2 0 times: {launches}")
+    if not (same and resumed_same) or inner_runs:
+        raise RuntimeError(f"chunked resume: repeat equal {same}, resumed equal {resumed_same}, "
+                           f"inner runs on resume {len(inner_runs)}")
+    if not ok:
+        raise RuntimeError(f"chunked 256^3 vs monolithic: {errs}")
+    del emu, proc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_learned_vel():
+    """A seeded learned-dweight velocity tree at full width, 128^3 bf16: the
+    materialized tangent, three B1 launches a Winograd site and no B2, with the
+    kernels on against off at the kernel gates.  Returns the launches per box."""
+    on, launches = _timed_box(True, 128, None, runs=3, learned=True, slab=32, tile=(128,) * 3,
+                              label="learned_vel")
+    off, launches_off = _timed_box(True, 128, False, runs=3, learned=True, slab=32,
+                                   tile=(128,) * 3, label="learned_vel")
+    errs, ok = _kernel_gates(True, on, off)
+    log("learned_vel_compare", size=128, **errs)
+    if launches["B1"] <= 0 or launches["B2"] != 0 or any(launches_off.values()):
+        raise RuntimeError(f"learned vel: expected B1 and no B2 with the kernels on, nothing "
+                           f"off: {launches}, {launches_off}")
+    if not ok:
+        raise RuntimeError(f"learned vel 128^3 kernels on vs off: {errs}")
+    return launches
+
+
+def phase_planner():
+    """The geometry planner on this card: for every full-width box this run
+    measured, measured peak <= estimate <= 1.3 x the peak, with its
+    ``memory_audit()["max_total"]`` beside it; then the plans for 512^3 and
+    1024^3 vel in bf16 and float32 on this card's memory (``hbm_bytes=None``)."""
+    from jax_nbody_emulator_with_dj_tpu_torch import (
+        ChunkedHierarchicalConfig,
+        auto_hierarchical_config,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments.profile_box import estimate
+
+    bad = []
+    for rec in PEAKS:
+        ratio = rec["estimate"] / rec["peak"]
+        rec.update(estimate_over_peak=ratio, bound=PEAK_BOUND)
+        log("planner_peak", **rec)
+        if not 1.0 <= ratio <= PEAK_BOUND:
+            bad.append(rec["box"])
+    for n in (512, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = auto_hierarchical_config(n, dtype=dtype, compute_vel=True)
+            geom = cfg.inner_config() if isinstance(cfg, ChunkedHierarchicalConfig) else cfg
+            log("planner_plan", size=n, dtype=str(dtype).replace("torch.", ""), vel=True,
+                kind=type(cfg).__name__, chunks=list(getattr(cfg, "chunks", (1, 1, 1))),
+                run_size=list(geom.size), slab=geom.slab, slab_h=geom.slab_h,
+                tile=list(geom.tile), tile1=geom.tile1, estimate=estimate(cfg, True),
+                card_bytes=torch.cuda.mem_get_info()[1])
+    if bad:
+        raise RuntimeError(f"planner estimate outside [peak, {PEAK_BOUND} x peak] for {bad}")
+
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One entry of the ``kernels`` line: the worst error over the kernel's
     rows, the times and the bound of its first timed row (the phase-3 shape)."""
@@ -823,9 +1076,14 @@ def main():
     phase_small_box(vel=True)
     launches_disp, out_disp = phase_slice(vel=False)
     launches_vel, out_vel = phase_slice(vel=True)
-    phase_vel_256()
+    out_256 = phase_vel_256()
     phase_style_small_box()
     launches_style = phase_style_slice({False: out_disp, True: out_vel})
+    path_launches = phase_runtimes({False: out_disp, True: out_vel})
+    path_launches["vel256_chunked_211"] = phase_chunked(out_256)
+    path_launches["vel128_learned"] = phase_learned_vel()
+    del out_256
+    phase_planner()
     direct_rows = phase_direct_kernel()
     stripe_rows = phase_stripe_kernel()
     wino43_rows = phase_wino43_kernel()
@@ -846,6 +1104,9 @@ def main():
     # launches per 128^3 box on the style models' path (the per-box fold feeds B1 / B2)
     kernels[0]["style_launches"] = launches_style[False]["B1"]
     kernels[1]["style_launches"] = launches_style[True]["B2"]
+    # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths
+    for entry, key in ((kernels[0], "B1"), (kernels[1], "B2")):
+        entry["path_launches"] = {path: lc[key] for path, lc in path_launches.items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of the N-body emulator, for one NVIDIA H100.
 
 A second package beside ``jax_nbody_emulator_with_dj_tpu`` (the reference it
-is tested against).  Ported so far: the four model cores (flexible-cosmology
-style models and premodulated ones, displacement and displacement+velocity),
-the subbox runtime, and the packed hierarchical runtime, on which a style
-model's weights are folded at each box's cosmology; the F(2,3)^2 Winograd
-conv and its fused factored-tangent pair as CUDA kernels for ``sm_90a``
-(``csrc/wino_f23.cu``); and the three other conv routes of the
+is tested against).  Ported: the four model cores (flexible-cosmology style
+models and premodulated ones, displacement and displacement+velocity, with
+learned or folded tangent kernels); the three big-box runtimes -- subbox,
+hierarchical (packed or unpacked, optionally with the y0 strip cache; a
+style model's weights are folded at each box's cosmology) and chunked
+hierarchical (boxes beyond one card, with resume) -- and the geometry
+planner (``auto_hierarchical_config``, calibrated on the H100); the F(2,3)^2
+Winograd conv and its fused factored-tangent pair as CUDA kernels for
+``sm_90a`` (``csrc/wino_f23.cu``); and the three other conv routes of the
 JAX package -- direct with a resident window (``csrc/direct_conv.cu``),
 direct plane-streamed over N parts (``csrc/stripe_conv.cu``), mixed F(2,3) x
 F(4,3) Winograd (``csrc/wino_f43.cu``) -- behind the conv-route bench
@@ -35,6 +38,8 @@ from .emulator import (
     modulate_emulator_parameters_vel,
 )
 from .hierarchical import HierarchicalConfig, HierarchicalProcessor
+from .chunked import ChunkedHierarchicalConfig, ChunkedHierarchicalProcessor
+from .geometry import auto_hierarchical_config
 from .subbox import SubboxConfig, SubboxProcessor
 from .models.cores import (
     NBodyEmulatorCore,
@@ -66,6 +71,9 @@ __all__ = [
     "SubboxProcessor",
     "HierarchicalConfig",
     "HierarchicalProcessor",
+    "ChunkedHierarchicalConfig",
+    "ChunkedHierarchicalProcessor",
+    "auto_hierarchical_config",
     "StyleNBodyEmulatorCore",
     "StyleNBodyEmulatorVelCore",
     "NBodyEmulatorCore",

@@ -3,9 +3,10 @@
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/emulator.py``: the four
 model cores (flexible-cosmology style models by default; premodulated ones,
 with the style fold done at creation, for ``premodulate=True``), each with
-displacement only or displacement+velocity, and the two big-box runtimes as
+displacement only or displacement+velocity, and the big-box runtimes as
 their processor (``SubboxConfig`` -> ``SubboxProcessor``,
-``HierarchicalConfig`` -> ``HierarchicalProcessor``).
+``HierarchicalConfig`` -> ``HierarchicalProcessor``,
+``ChunkedHierarchicalConfig`` -> ``ChunkedHierarchicalProcessor``).
 """
 
 from __future__ import annotations
@@ -33,11 +34,12 @@ from .utils.params import convert_reference_params, load_params_npz, tree_to
 @dataclass
 class NBodyEmulator:
     """Bundle of model + params + (optional) big-box processor: a
-    ``SubboxProcessor`` or a ``HierarchicalProcessor``."""
+    ``SubboxProcessor``, ``HierarchicalProcessor`` or
+    ``ChunkedHierarchicalProcessor``."""
 
     model: object
     params: dict | None
-    processor: SubboxProcessor | HierarchicalProcessor | None
+    processor: object | None
     premodulate: bool = False
     compute_vel: bool = True
     dtype: torch.dtype = torch.float32
@@ -156,7 +158,9 @@ def modulate_emulator_parameters_vel(params: dict, z, Om, eps: float = 1e-8) -> 
 
 def _make_processor(model, params, config, device):
     """Dispatch a processor_config dataclass to its runtime."""
-    if not isinstance(config, (SubboxConfig, HierarchicalConfig)):
+    from .chunked import ChunkedHierarchicalConfig, ChunkedHierarchicalProcessor
+
+    if not isinstance(config, (SubboxConfig, HierarchicalConfig, ChunkedHierarchicalConfig)):
         raise TypeError(
             "processor_config must be a SubboxConfig, HierarchicalConfig, or "
             f"ChunkedHierarchicalConfig, got {type(config).__name__}"
@@ -166,6 +170,8 @@ def _make_processor(model, params, config, device):
                          "load_params=True) with processor_config=")
     if isinstance(config, SubboxConfig):
         return SubboxProcessor(model, params, config, device=device)
+    if isinstance(config, ChunkedHierarchicalConfig):
+        return ChunkedHierarchicalProcessor(model, params, config, device=device)
     return HierarchicalProcessor(model, params, config, device=device)
 
 
@@ -198,8 +204,10 @@ def create_emulator(
             ``utils.params.load_params_npz`` reads a saved one).
         processor_config: the runtime of ``process_box``: a ``SubboxConfig``
             builds a ``SubboxProcessor`` (the reference's semantics), a
-            ``HierarchicalConfig`` a ``HierarchicalProcessor``; either needs
-            parameters.
+            ``HierarchicalConfig`` a ``HierarchicalProcessor``, a
+            ``ChunkedHierarchicalConfig`` a ``ChunkedHierarchicalProcessor``;
+            each needs parameters.  ``geometry.auto_hierarchical_config(size,
+            ...)`` plans a config that fits the card.
         premodulate_z / premodulate_Om: fixed cosmology for the fold.
         dtype: compute dtype; ``processor_config.dtype`` wins if present.
         device: torch device of the processor and of ``apply`` (default: the CUDA

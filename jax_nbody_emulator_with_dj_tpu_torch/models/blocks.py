@@ -262,9 +262,12 @@ def apply_resample_block_vel(p, x, dx, seq):
 # Winograd kernels ("wh") in bf16, re-tiled into the pieces kernels B1 and B2
 # read (ops/winograd_cuda.py::tile_wh), and the per-part weights of the
 # decoder's concat inputs split into contiguous tensors.  Velocity layers run
-# the FACTORED tangent: a style-folded dweight has the rank structure
-# dW = W (.) g_in - W (.) c_out, so dy = op(x (.) g + dx, W) - c (.) op(x, W),
-# one conv sharing the primal kernel (kernel B2 at the Winograd sites).
+# the FACTORED tangent where the dweight has the rank structure of a style
+# fold, dW = W (.) g_in - W (.) c_out: dy = op(x (.) g + dx, W) - c (.) op(x, W),
+# one conv sharing the primal kernel (kernel B2 at the Winograd sites).  A
+# learned dweight (no such structure) runs the MATERIALIZED tangent,
+# dy = op(x, dW) + op(dx, W), as a sum over the parts of the concat (x, dx)
+# (kernel B1 for each part at the Winograd sites).
 # ---------------------------------------------------------------------------
 
 _PACKERS = {
@@ -310,18 +313,27 @@ def pack_conv_layer_params(p, kind, *, groups: int = 1, vel: bool = False,
     Returns ``{"w", "b"}`` (plus ``"wh"`` for Winograd-eligible convs when
     ``wino``: the transformed weights re-tiled into the kernels' pieces,
     ``ops/winograd_cuda.py::TiledWh``); with ``groups > 1`` the weights are
-    the list of per-part operands of the implicit concat input instead.  With ``vel``, also the
-    tangent's rank factors: ``"g"`` unpacked (Ci,) and ``"c"`` packed (2Co,),
+    the list of per-part operands of the implicit concat input instead.
+    With ``vel``, the tangent: where ``dweight`` has the style fold's rank
+    structure, its factors ``"g"`` unpacked (Ci,) and ``"c"`` packed (2Co,),
     float32, from the fold's ``dfac_in``/``dfac_out`` or recovered from
-    ``dweight``.
+    ``dweight``; else (a learned ``dweight``) ``"wcat"``, the per-part
+    operands of concat(dW, W) packed with twice the groups (``"whcat"`` their
+    Winograd pieces where ``"wh"`` exists), and for a narrow output (packed
+    Cols < 128, not 'up', groups 1) ``"wst"``, the primal and x-tangent
+    kernels stacked along Cols so that one conv yields y and op(x, dW).
     """
-    wp = _PACKERS[kind](p["weight"].float(), groups)
+    packer = _PACKERS[kind]
+    wp = packer(p["weight"].float(), groups)
     parts = _cat_weight_parts(wp, kind, groups)
 
     def dev(t, dt):
         return t.to(device=device, dtype=dt).contiguous()
 
-    w = [dev(s2d.oidhw_w3(t) if kind == "conv" else t, dtype) for t in parts]
+    def conv_layout(t):
+        return s2d.oidhw_w3(t) if kind == "conv" else t
+
+    w = [dev(conv_layout(t), dtype) for t in parts]
     out = {
         "w": w[0] if groups == 1 else w,
         "b": dev(s2d.pack_bias(p["bias"].float()), torch.float32),
@@ -330,23 +342,37 @@ def pack_conv_layer_params(p, kind, *, groups: int = 1, vel: bool = False,
         wh = [tile_wh(dev(t, torch.bfloat16))
               for t in _cat_weight_parts(transform_packed_w3(wp), kind, groups)]
         out["wh"] = wh[0] if groups == 1 else wh
-    if vel:
-        g, c = _tangent_factors(p)
-        out["g"] = dev(g, torch.float32)
-        out["c"] = dev(s2d.pack_bias(c), torch.float32)
+    if not vel:
+        return out
+    fac = _tangent_factors(p)
+    if fac is not None:
+        out["g"] = dev(fac[0], torch.float32)
+        out["c"] = dev(s2d.pack_bias(fac[1]), torch.float32)
+        return out
+    # dy = op(cat(x, dx), cat(dW, W)): the packed input is the channel concat of
+    # two packed tensors per part, so the concat weight packs with twice the groups.
+    wcat = packer(torch.cat([p["dweight"].float(), p["weight"].float()], dim=-2), 2 * groups)
+    out["wcat"] = [dev(conv_layout(t), dtype) for t in _cat_weight_parts(wcat, kind, 2 * groups)]
+    if "wh" in out:
+        # the tap transform commutes with the row split: split its result the same way
+        out["whcat"] = [tile_wh(dev(t, torch.bfloat16))
+                        for t in _cat_weight_parts(transform_packed_w3(wcat), kind, 2 * groups)]
+    if kind != "up" and groups == 1 and wp.shape[-1] < 128:
+        # narrow outputs (the model's 64->3 tail): one conv for y and op(x, dW)
+        # ('up' Cols encode the (r, s, a, p) reshuffle and cannot be stacked)
+        wst = torch.cat([wp, packer(p["dweight"].float(), groups)], -1)
+        out["wst"] = dev(conv_layout(wst), dtype)
     return out
 
 
 def _tangent_factors(p):
-    """float32 (g (Ci,), c (Co,)) with dweight = weight (.) g - weight (.) c."""
+    """float32 (g (Ci,), c (Co,)) with dweight = weight (.) g - weight (.) c, or
+    None where dweight has no such structure (a learned tangent kernel)."""
     if "dfac_in" in p:
         return p["dfac_in"].float(), p["dfac_out"].float()
     g, c, ok = recover_dweight_factors(p["weight"], p["dweight"])
     if not ok:
-        raise NotImplementedError(
-            "this dweight has no rank structure (a learned tangent kernel); the "
-            "materialized-tangent layers are not ported: ROADMAP item A11"
-        )
+        return None
     return torch.from_numpy(g).float(), torch.from_numpy(c).float()
 
 
@@ -448,7 +474,10 @@ def _fin_vel(y, dy, act, out_dtype):
 def _apply_packed_vel(pp, xp, dxp, kind, act: bool = False):
     """One packed vel conv layer, factored tangent: y = op(x, W) + b and
     dy = op(x (.) g + dx, W) - c (.) op(x, W); ``act`` fuses the LeakyReLU
-    pair (in-kernel at the Winograd sites)."""
+    pair (in-kernel at the Winograd sites).  A layer packed without factors
+    runs the materialized tangent (``_apply_packed_vel_learned``)."""
+    if "g" not in pp:
+        return _apply_packed_vel_learned(pp, xp, dxp, kind, act)
     out_dtype = xp.dtype
     sp = xp * pp["g"].repeat(2).to(xp.dtype) + dxp  # g tiled over the packed rows [q0|q1]
     if "wh" in pp:
@@ -461,13 +490,44 @@ def _apply_packed_vel(pp, xp, dxp, kind, act: bool = False):
     return _fin_vel(y, dy, act, out_dtype)
 
 
+def _apply_packed_vel_learned(pp, xp, dxp, kind, act):
+    """Materialized tangent (a learned dweight): y = op(x, W) + b and
+    dy = op(x, dW) + op(dx, W), the tangent as a sum over the parts of the
+    concat (x, dx) -- three B1 launches at a Winograd site; a narrow output
+    runs y and op(x, dW) as one Cols-stacked conv (``"wst"``)."""
+    op = _PACKED_OPS[kind]
+    out_dtype = xp.dtype
+    wdw, ww = pp["wcat"]
+    if "wst" in pp:
+        c = pp["b"].shape[0]
+        z = op(xp, pp["wst"])
+        y = z[..., :c] + pp["b"].to(xp.dtype)
+        dy = z[..., c:] + op(dxp, ww)
+    elif "whcat" in pp:
+        y = _wino_conv(xp, pp["wh"], pp["b"])
+        dy = _wino_conv(xp, pp["whcat"][0]) + _wino_conv(dxp, pp["whcat"][1])
+    else:
+        y = op(xp, pp["w"]) + pp["b"].to(xp.dtype)
+        dy = op(xp, wdw) + op(dxp, ww)
+    return _fin_vel(y, dy, act, out_dtype)
+
+
 def _apply_packed_vel_cat(pp, xs, dxs, kind, act: bool = False):
     """Vel form of ``_apply_packed_cat``: per part one raw factored pair
     (no bias, c-fold or act); the bias, the c-fold and the LeakyReLU pair
-    run once on the sum of the parts."""
+    run once on the sum of the parts.  Without factors (a learned dweight)
+    the primal is ``_apply_packed_cat`` and the tangent the sum of one conv
+    per part of (xs..., dxs...) against the twice-grouped concat weight."""
     out_dtype = xs[0].dtype
     wino = "wh" in pp
     op = _PACKED_OPS[kind]
+    if "g" not in pp:
+        y = _apply_packed_cat(pp, xs, kind)
+        conv = _wino_conv if wino else op
+        dy = None
+        for x, wi in zip(list(xs) + list(dxs), pp["whcat"] if wino else pp["wcat"]):
+            dy = conv(x, wi) if dy is None else dy + conv(x, wi)
+        return _fin_vel(y, dy.to(out_dtype), act, out_dtype)
     cg = pp["g"].shape[0] // len(xs)
     z = zt = None
     for i, (x, dx, wi) in enumerate(zip(xs, dxs, pp["wh"] if wino else pp["w"])):

@@ -296,7 +296,8 @@ def test_config_accepts_every_reference_field():
     for kw in (dict(size=(N,) * 3, slab=8, tile=(8, 8, 8)),
                dict(size=(128,) * 3), dict(size=(512,) * 3, tile=(128, 64, 128))):
         cfg, jcfg = HierarchicalConfig(**kw), JConfig(**kw)
-        assert cfg.y0_slab_h is None  # kept as given: nothing reads it before the y0 cache
+        # the y0 cache reads it: the JAX default, min(68, tile H + 8)
+        assert cfg.y0_slab_h == jcfg.y0_slab_h == min(68, cfg.tile[1] + 8)
         assert cfg.buf_dtype == cfg.dtype == torch.bfloat16 and jcfg.buf_dtype == jcfg.dtype
     cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8), dtype=torch.float32,
                              buf_dtype=torch.bfloat16, y0_slab_h=6)

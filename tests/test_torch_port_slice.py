@@ -21,7 +21,6 @@ import pytest
 import torch
 
 from jax_nbody_emulator_with_dj_tpu import NBodyEmulatorCore as JCore
-from jax_nbody_emulator_with_dj_tpu import NBodyEmulatorVelCore as JVelCore
 from jax_nbody_emulator_with_dj_tpu import StyleNBodyEmulatorCore as JStyleCore
 from jax_nbody_emulator_with_dj_tpu.emulator import modulate_emulator_parameters as jmodulate
 from jax_nbody_emulator_with_dj_tpu.hierarchical import HierarchicalConfig as JConfig
@@ -289,7 +288,7 @@ def test_slice_wino_matches_jax_mid64(style64, box, jax_box64, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Configuration and the unported parts
+# Configuration
 # ---------------------------------------------------------------------------
 
 
@@ -331,26 +330,6 @@ def test_wino_default_follows_device(style4):
                             premodulate_z=Z, premodulate_Om=OM, mid_chan=4)
 
 
-def _learned_vel_tree():
-    """A plain-vel tree whose dweight is learned (random): no rank structure."""
-    return params_from_jax(JVelCore(mid_chan=4).init(jax.random.key(5)))
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(compute_vel=True, params=_learned_vel_tree,
-          processor_config=HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8))), "A11"),
-    (dict(compute_vel=False,
-          processor_config=HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8),
-                                              packed=False)), "A4"),
-])
-def test_unported_emulators_raise(style4, kw, item):
-    args = dict(premodulate=True, params=params_from_jax(style4), premodulate_z=Z,
-                premodulate_Om=OM, mid_chan=4, device="cpu")
-    kw = {k: v() if callable(v) else v for k, v in kw.items()}
-    with pytest.raises(NotImplementedError, match=item):
-        create_emulator(**{**args, **kw})
-
-
 def test_style_emulator_is_ported(style4, box):
     """``premodulate=False`` builds the style disp core, whose forward and
     runtime equal the premodulated ones with the style folded at the same
@@ -369,14 +348,6 @@ def test_style_emulator_is_ported(style4, box):
     style = create_emulator(premodulate=False, compute_vel=False, params=params_from_jax(style4),
                             processor_config=cfg, mid_chan=4, device="cpu")
     np.testing.assert_array_equal(style.process_box(box, Z, OM), _port_box(style4, 4, box))
-
-
-@pytest.mark.parametrize("kw", [dict(packed=False), dict(y0_cache=True)])
-def test_unported_runtime_options_raise(style4, kw):
-    tree = modulate_emulator_parameters(params_from_jax(style4), Z, OM)
-    cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8), **kw)
-    with pytest.raises(NotImplementedError, match="A4"):
-        HierarchicalProcessor(NBodyEmulatorCore(mid_chan=4), tree, cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +369,8 @@ def test_port_import_loads_no_jax():
     code = (
         "import sys, jax_nbody_emulator_with_dj_tpu_torch as t\n"
         "import jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.native\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.experiments.memory_points\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jax_nbody_emulator_with_dj_tpu.')\n"
         "       or m == 'jax_nbody_emulator_with_dj_tpu']\n"

@@ -280,10 +280,25 @@ def test_core_fields_and_init_match_jax(name):
 
 
 def test_learned_vel_tree_from_init_still_raises_a11():
+    """A learned-``dweight`` tree from ``init`` once made packing raise; it now
+    packs the materialized tangent (``wcat``, no rank factors) and runs, equal
+    to the model's own forward on the wrap-padded box (rtol 2e-4 / atol 2e-5,
+    velocity in displacement units as in ``tests/test_torch_port_vel.py``)."""
+    from jax_nbody_emulator_with_dj_tpu_torch.hierarchical import _wrap_pad
+
     tree = NBodyEmulatorVelCore(mid_chan=4).init(5)
-    cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8))
-    with pytest.raises(NotImplementedError, match="A11"):
-        HierarchicalProcessor(NBodyEmulatorVelCore(mid_chan=4), tree, cfg, device="cpu")
+    cfg = HierarchicalConfig(size=(N,) * 3, slab=8, tile=(8, 8, 8), dtype=torch.float32,
+                             output_dtype=torch.float32)
+    emu = create_emulator(premodulate=True, compute_vel=True, params=tree, processor_config=cfg,
+                          mid_chan=4, device="cpu")
+    assert isinstance(emu.processor, HierarchicalProcessor)
+    assert emu.processor.learned_tangent and "g" not in emu.processor._exec["conv_l1"]["conv_0"]
+    box = np.random.default_rng(2).standard_normal((3, N, N, N)).astype(np.float32)
+    disp, vel = emu.process_box(box, Z, OM)
+    ref = emu.apply(_wrap_pad(torch.from_numpy(box)[None], 48), Z, OM)
+    vf = float(vel_norm(Z, OM))
+    np.testing.assert_allclose(disp, ref[0][0].numpy(), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(vel / vf, ref[1][0].numpy() / vf, rtol=2e-4, atol=2e-5)
 
 
 def test_create_emulator_takes_style_size(style4):
