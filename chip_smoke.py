@@ -36,7 +36,13 @@ velocity tree, whose tangent runs B1 three times a site, kernels on against
 off) and the geometry planner (``planner``: every measured peak against its
 estimate and ``memory_audit``, and the plans for 512^3 and 1024^3 on this
 card).  B1 and B2 are also held against their plain versions at the y0
-strip's conv shape and at a learned-tangent site.
+strip's conv shape and at a learned-tangent site.  Then the science toolkit
+(``science``: every field function on the card against the same function on
+the CPU at 128^3, FoF from card tensors, the pipeline's functions timed at
+512^3) and the science pipeline (``pipeline``: ``run_lpt_emulator_pipeline``
+at 512^3 disp+vel and 256^3 disp with ``runtime="auto"``, two emulator calls
+each, B2 / B1 launching, the Gaussian random field's P(k) against its EH98
+input).
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -1053,6 +1059,233 @@ def phase_planner():
         raise RuntimeError(f"planner estimate outside [peak, {PEAK_BOUND} x peak] for {bad}")
 
 
+SCIENCE_N = 128  # card vs CPU comparisons
+SCIENCE_TIMED_N = 512  # the pipeline's headline size
+GATE_SCIENCE_FFT = 1e-5  # rel max, FFT fields: cuFFT against the CPU's FFT
+GATE_SCIENCE_DEPOSIT = 1e-4  # max abs on rho/rho_bar: float32 atomics (10x the CPU tests' 1e-5)
+GATE_SCIENCE_PK = 1e-5  # rtol of binned spectra, shells with a mode
+GATE_SCIENCE_BISPECTRUM = 1e-4
+GATE_GRF_PK = 0.03  # |mean P_measured / P_EH98 - 1| over 0.02 <= k <= 0.2 h/Mpc
+
+
+def _science_compare(name, got, ref, kind):
+    """Hold a card result against the CPU's; log it; raise if out of gate."""
+    g, r = (np.asarray(x.detach().cpu().numpy() if torch.is_tensor(x) else x, np.float64)
+            for x in (got, ref))
+    if g.shape != r.shape or not np.isfinite(g).all():
+        raise RuntimeError(f"science {name}: bad card output {g.shape}")
+    err = float(np.abs(g - r).max())
+    row = dict(case=name, kind=kind, max_abs_err=err)
+    if kind == "fft":
+        row.update(rel_err=err / float(np.abs(r).max()), gate=GATE_SCIENCE_FFT)
+        ok = row["rel_err"] < GATE_SCIENCE_FFT
+    elif kind == "deposit":
+        row.update(gate=GATE_SCIENCE_DEPOSIT)
+        ok = err < GATE_SCIENCE_DEPOSIT
+    elif kind == "equal":
+        row.update(gate=0.0)
+        ok = err == 0.0
+    else:  # binned spectra and bispectra: rtol, with a floor of rtol x max|ref| (signed sums)
+        gate = GATE_SCIENCE_BISPECTRUM if kind == "bispectrum" else GATE_SCIENCE_PK
+        excess = np.abs(g - r) - gate * (np.abs(r) + np.abs(r).max() * (kind != "pk"))
+        row.update(worst_rel_err=float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-30))),
+                   gate=gate)
+        ok = bool((excess <= 0).all())
+    log("science", **row)
+    if not ok:
+        raise RuntimeError(f"science {name}: card vs CPU out of gate: {row}")
+
+
+def phase_science():
+    """The science toolkit on the card against the same functions on the CPU, at
+    128^3, float32, one seeded input for both: every field function (the GRF's
+    noise core, 1LPT, the deposit in all four orders, deconvolution, the
+    spectra, resizing, smoothing, Minkowski functionals, the bispectrum); then
+    the host code fed from card tensors (positions, FoF native against numpy).
+    Then the pipeline's functions at 512^3, timed (CUDA events, one warm-up,
+    mean of 3).  Every ``irfftn`` user is held here: cuFFT's complex-to-real
+    transform answers otherwise than the CPU's where its input is not
+    Hermitian in the self-conjugate planes."""
+    from jax_nbody_emulator_with_dj_tpu_torch import science as sci
+    from jax_nbody_emulator_with_dj_tpu_torch.native import native_fof_available
+    from jax_nbody_emulator_with_dj_tpu_torch.science import grf, mas, resize
+
+    if not native_fof_available():
+        raise RuntimeError("the native FoF helper did not build (g++)")
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    n, box = SCIENCE_N, 500.0
+    k_tab = np.logspace(-4, 2, 512)
+    p_tab = sci.eisenstein_hu_pk(k_tab)
+    rng = np.random.default_rng(9)
+    noise = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32))
+    noise_up = torch.from_numpy(rng.standard_normal((2 * n,) * 3).astype(np.float32))
+
+    def both(fn, *args):
+        """fn on the card and on the CPU, each with its own copy of the tensors."""
+        def on(d):
+            return fn(*(a.to(d) if torch.is_tensor(a) else a for a in args))
+        got = on(dev)
+        torch.cuda.synchronize()
+        return got, on(cpu)
+
+    def check(name, fn, *args, kind="fft"):
+        got, ref = both(fn, *args)
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        for i, (g, r) in enumerate(pairs):
+            _science_compare(f"{name}[{i}]" if isinstance(got, tuple) else name, g, r, kind)
+        return ref
+
+    delta = check("grf_core", grf._colour_noise, noise, box, k_tab, p_tab)
+    check("grf_core_fixed_amplitude",
+          lambda x: grf._colour_noise(x, box, k_tab, p_tab, fixed_amplitude=True), noise)
+    psi = check("zeldovich_displacement", sci.zeldovich_displacement, delta, box)
+    for worder in (1, 2, 3, 4):
+        check(f"deposit_displacement_w{worder}",
+              lambda p, w=worder: mas.deposit_displacement(p, box, worder=w), psi, kind="deposit")
+        check(f"displacement_to_density_w{worder}",
+              lambda p, w=worder: sci.displacement_to_density(p, box, worder=w), psi)
+    check("deposit_nmesh96",
+          lambda p: mas.deposit_displacement(p, box, nmesh=96, worder=2), psi, kind="deposit")
+    rho = mas.deposit_displacement(psi, box, worder=2)
+    check("deconvolve_mas", lambda d: sci.deconvolve_mas(d, 2), rho - 1.0)
+    check("mas_window", lambda d: mas.mas_window(n, 4, d.device), delta)
+    delta_nl = sci.displacement_to_density(psi, box)
+    check("power_spectrum", lambda d: sci.power_spectrum(d, box), delta_nl, kind="pk")
+    check("cross_power", lambda a, b: sci.cross_power(a, b, box), delta_nl, delta,
+          kind="signed")
+    check("transfer_and_correlation",
+          lambda a, b: sci.transfer_and_correlation(a, b, box), delta_nl, delta, kind="signed")
+    check("upsample_modes_core", lambda d, w: resize._upsample_modes_from_noise(
+        d, w, 2 * n, box, k_tab, p_tab), delta, noise_up)
+    check("upsample_fourier", lambda d: sci.upsample_fourier(d, 2 * n), delta)
+    check("upsample_linear", lambda d: sci.upsample_linear(d, 2 * n), delta)
+    check("downsample_average", lambda d: sci.downsample_average(d, n // 2), delta)
+    check("gaussian_smooth", lambda d: sci.gaussian_smooth(d, box, 8.0), delta)
+    check("resize_density_grid_down", lambda d: sci.resize_density_grid(d, n // 4, box, r_smooth=8.0),
+          delta)
+    check("minkowski_functionals",
+          lambda d: sci.minkowski_functionals(d, [-0.5, 0.0, 0.5]), delta_nl, kind="equal")
+    got, ref = both(lambda d: sci.reduced_bispectrum(d, box, 0.1, 0.15, np.linspace(0.2, 3.0, 4)),
+                    delta_nl)
+    for key in ("B", "Q", "P3"):
+        _science_compare(f"reduced_bispectrum_{key}", got[key], ref[key], "bispectrum")
+    # host code fed from the card: summary metrics, positions, FoF (64^3 of the grid)
+    a, b = (sci.summary_metrics(delta_nl.to(d), delta.to(d), box) for d in (dev, cpu))
+    _science_compare("summary_metrics", [a[key] for key in sorted(a)],
+                     [b[key] for key in sorted(b)], "signed")
+    psi64 = sci.zeldovich_displacement(delta[::2, ::2, ::2].contiguous(), box)
+    pos = sci.positions_from_displacement(psi64.to(dev), box)
+    _science_compare("positions_from_displacement", pos,
+                     sci.positions_from_displacement(psi64, box), "equal")
+    b_link = 0.5 * box / (n // 2)  # half the mean spacing: groups at any seed
+    t0 = time.perf_counter()
+    native = sci.friends_of_friends(pos, box, b_link, nmin=2, engine="native")
+    native_s = time.perf_counter() - t0
+    numpy_ = sci.friends_of_friends(pos, box, b_link, nmin=2, engine="numpy")
+    same = all(np.array_equal(native[key], numpy_[key]) for key in native)
+    log("science", case="friends_of_friends_64", particles=len(pos), n_groups=native["n_groups"],
+        native_equals_numpy=same, native_s=native_s)
+    if not same or native["n_groups"] < 1:
+        raise RuntimeError("FoF on the card's displacement: native and numpy engines differ")
+
+    # the pipeline's field functions at 512^3 on the card
+    nt = SCIENCE_TIMED_N
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d512 = sci.gaussian_random_field(gen, nt, 1000.0, k_tab, p_tab, device=dev)
+    p512 = sci.zeldovich_displacement(d512, 1000.0)
+    rows = {
+        "gaussian_random_field": lambda: sci.gaussian_random_field(
+            gen, nt, 1000.0, k_tab, p_tab, device=dev),
+        "zeldovich_displacement": lambda: sci.zeldovich_displacement(d512, 1000.0),
+        "displacement_to_density_cic_deconvolved": lambda: sci.displacement_to_density(
+            p512, 1000.0, worder=2, deconvolve=True),
+        "power_spectrum": lambda: sci.power_spectrum(d512, 1000.0),
+        "minkowski_functionals_3": lambda: sci.minkowski_functionals(d512, [-0.5, 0.0, 0.5]),
+    }
+    timed = {}
+    for name, fn in rows.items():
+        torch.cuda.reset_peak_memory_stats()
+        timed[name] = cuda_ms(fn, n=3)
+        log("science_512", function=name, size=nt, ms=timed[name],
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+    del d512, p512
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_pipeline(card):
+    """``run_lpt_emulator_pipeline`` on the card at the headline size: seed 42,
+    512^3, 1000 Mpc/h, z=0, ``runtime="auto"`` (the planner's geometry), bf16,
+    disp+vel at full width (a seeded style tree as ``_emulator`` builds it,
+    folded at (z, Om)), two emulator calls, twice; then 256^3 with the
+    displacement model.  The kernels' counts are set to 0 just before each run and read just
+    after (both emulator calls): the vel run must launch B2, the disp run B1.
+    The GRF's measured P(k) must follow the EH98 input.  Returns the launches
+    of each run."""
+    from jax_nbody_emulator_with_dj_tpu_torch import (
+        ChunkedHierarchicalConfig,
+        auto_hierarchical_config,
+        run_lpt_emulator_pipeline,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch import science as sci
+    from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
+
+    params = init_unet(0, style=True)
+    launches = {}
+    # the 512^3 run twice: the first pipeline call of a process pays one-off costs
+    # (cuFFT plans, the first fold and pack), the second is what each later box costs
+    runs = (("pipeline_512_vel", 512, True), ("pipeline_512_vel_warm", 512, True),
+            ("pipeline_256_disp", 256, False))
+    for label, n, vel in runs:
+        cfg = auto_hierarchical_config(n, dtype=torch.bfloat16, compute_vel=vel,
+                                       output_dtype=torch.float32, mid_chan=64)
+        geom = cfg.inner_config() if isinstance(cfg, ChunkedHierarchicalConfig) else cfg
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_lpt_emulator_pipeline(
+            seed=42, n_part=n, boxsize=1000.0, z=0.0, runtime="auto", precision="bf16",
+            compute_vel=vel, mid_chan=64, num_sims=2, params=params, premodulate=True,
+            device="cuda")
+        wall = time.perf_counter() - t0
+        launches[label] = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        outs = [res.psi_emu] + ([res.vel_emu] if vel else [])
+        for o in outs + [res.psi_lpt]:
+            if o.shape != (3, n, n, n) or not np.isfinite(o).all():
+                raise RuntimeError(f"{label}: bad displacement/velocity {o.shape}")
+        for o in (res.delta_lin, res.delta_lpt, res.delta_emu):
+            if o.shape != (n, n, n) or not np.isfinite(o).all():
+                raise RuntimeError(f"{label}: bad density {o.shape}")
+        k, pk, counts = (t.cpu().numpy() for t in sci.power_spectrum(
+            torch.from_numpy(res.delta_lin).cuda(), 1000.0))
+        sel = (k >= 0.02) & (k <= 0.2) & (counts >= 1)
+        k_tab = np.logspace(-4, 2, 512)
+        p_in = np.exp(np.interp(np.log(k[sel]), np.log(k_tab),
+                                np.log(sci.eisenstein_hu_pk(k_tab))))
+        grf_ratio = float(np.mean(pk[sel] / p_in))
+        staged = sum(res.timings[f"{key}_seconds"] for key in (
+            "ic", "lpt", "lpt_density", "emulator_build", "emu_density"))
+        staged += sum(res.timings["emulator_runs_seconds"])
+        # wall time outside the timed stages: the kept fields' copies to the host
+        log("pipeline", run=label, n_part=n, vel=vel, card=card, wall_s=wall,
+            untimed_s=wall - staged, timings=res.timings, max_memory_allocated=peak, launches=launches[label],
+            launches_per_box={key: v / 2 for key, v in launches[label].items()},
+            plan=type(cfg).__name__, chunks=list(getattr(cfg, "chunks", (1, 1, 1))),
+            slab=geom.slab, slab_h=geom.slab_h, tile=list(geom.tile), tile1=geom.tile1,
+            grf_pk_mean_ratio=grf_ratio, grf_gate=GATE_GRF_PK, metadata_device=res.metadata["device"])
+        kernel = "B2" if vel else "B1"
+        if launches[label][kernel] <= 0:
+            raise RuntimeError(f"{label}: {kernel} launched 0 times: {launches[label]}")
+        if abs(grf_ratio - 1.0) > GATE_GRF_PK:
+            raise RuntimeError(f"{label}: GRF P(k) / EH98 = {grf_ratio}")
+        del res, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One entry of the ``kernels`` line: the worst error over the kernel's
     rows, the times and the bound of its first timed row (the phase-3 shape)."""
@@ -1084,6 +1317,8 @@ def main():
     path_launches["vel128_learned"] = phase_learned_vel()
     del out_256
     phase_planner()
+    phase_science()
+    path_launches.update(phase_pipeline(card))
     direct_rows = phase_direct_kernel()
     stripe_rows = phase_stripe_kernel()
     wino43_rows = phase_wino43_kernel()
@@ -1104,7 +1339,8 @@ def main():
     # launches per 128^3 box on the style models' path (the per-box fold feeds B1 / B2)
     kernels[0]["style_launches"] = launches_style[False]["B1"]
     kernels[1]["style_launches"] = launches_style[True]["B2"]
-    # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths
+    # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths; per
+    # pipeline run (two emulator calls) of the 512^3 vel and 256^3 disp pipelines
     for entry, key in ((kernels[0], "B1"), (kernels[1], "B2")):
         entry["path_launches"] = {path: lc[key] for path, lc in path_launches.items()}
     print(card)

@@ -13,7 +13,11 @@ Winograd conv and its fused factored-tangent pair as CUDA kernels for
 JAX package -- direct with a resident window (``csrc/direct_conv.cu``),
 direct plane-streamed over N parts (``csrc/stripe_conv.cu``), mixed F(2,3) x
 F(4,3) Winograd (``csrc/wino_f43.cu``) -- behind the conv-route bench
-(``experiments/conv_routes.py``).  Entry points run on the CUDA card unless
+(``experiments/conv_routes.py``); and the science pipeline
+(``run_lpt_emulator_pipeline``: Gaussian random field -> Zel'dovich
+displacement -> emulator -> deposited density) with its single-device toolkit
+(``science``: power spectra, EH98 P(k), mass assignment, resizing, Minkowski
+functionals, bispectrum, halofit, FoF halos).  Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.  This package never imports JAX.
 """
 
@@ -41,6 +45,7 @@ from .hierarchical import HierarchicalConfig, HierarchicalProcessor
 from .chunked import ChunkedHierarchicalConfig, ChunkedHierarchicalProcessor
 from .geometry import auto_hierarchical_config
 from .subbox import SubboxConfig, SubboxProcessor
+from .pipeline import PipelineResult, run_lpt_emulator_pipeline
 from .models.cores import (
     NBodyEmulatorCore,
     NBodyEmulatorVelCore,
@@ -74,6 +79,8 @@ __all__ = [
     "ChunkedHierarchicalConfig",
     "ChunkedHierarchicalProcessor",
     "auto_hierarchical_config",
+    "run_lpt_emulator_pipeline",
+    "PipelineResult",
     "StyleNBodyEmulatorCore",
     "StyleNBodyEmulatorVelCore",
     "NBodyEmulatorCore",

@@ -1,13 +1,18 @@
-"""Host-side native helper of the chunked runtime, built on demand, loaded through ctypes.
+"""Host-side native helpers, built on demand, loaded through ctypes.
 
-``staging.cpp`` gathers a periodically wrapped subvolume of a C-order
-``(C, D, H, W)`` host array by segment memcpys: the chunked runtime's host
-staging of each padded input chunk (numpy's broadcast fancy index runs
-element by element).  It is a host gather, not a device kernel.  The source
-is compiled with ``g++ -O3 -shared -fPIC`` at first use into the package's
-git-ignored ``_build/`` (the CUDA objects' directory).  Where the build
-fails, ``periodic_gather`` returns None and the caller takes the numpy
-fancy-index path, which gives the same bytes.
+- ``staging.cpp`` gathers a periodically wrapped subvolume of a C-order
+  ``(C, D, H, W)`` host array by segment memcpys: the chunked runtime's host
+  staging of each padded input chunk (numpy's broadcast fancy index runs
+  element by element).
+- ``fof.cpp`` is the friends-of-friends pair-linking loop of
+  ``science.halos.friends_of_friends`` (a lock-free union-find over a sparse
+  cell grid, threaded).
+
+Both are host code, not device kernels.  Each source is compiled with
+``g++ -O3 -std=c++17 -shared -fPIC -pthread`` at first use into the
+package's git-ignored ``_build/`` (the CUDA objects' directory).  Where a
+build fails, ``periodic_gather`` / ``fof_labels`` return None and the caller
+takes its numpy path, which gives the same result.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).with_name("staging.cpp")
+FOF_THREADS_ENV = "JAX_NBODY_TORCH_FOF_THREADS"
 _CACHE: dict[str, object] = {}
 
 
@@ -31,11 +36,12 @@ def _build_dir() -> Path:
     return BUILD_DIR
 
 
-def _compile_and_load():
-    """Compile staging.cpp (once per version of it) and dlopen it; None on failure."""
+def _compile_and_load(name: str):
+    """Compile <name>.cpp (once per version of it) and dlopen it; None on failure."""
+    src = Path(__file__).with_name(f"{name}.cpp")
     try:
-        tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-        so = _build_dir() / f"staging_{tag}.so"
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        so = _build_dir() / f"{name}_{tag}.so"
 
         def build():
             # a name of its own per process: concurrent first builds (pytest
@@ -44,7 +50,7 @@ def _compile_and_load():
             try:
                 subprocess.run(
                     ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-                     str(_SRC), "-o", str(tmp)],
+                     str(src), "-o", str(tmp)],
                     check=True, capture_output=True, timeout=300,
                 )
                 os.replace(tmp, so)
@@ -63,21 +69,44 @@ def _compile_and_load():
         return None
 
 
-def _load_staging():
-    """The staging library (None if it cannot be built; probed once per process)."""
-    if "staging" not in _CACHE:
-        lib = _compile_and_load()
+def _get_lib(name: str, configure):
+    """The library of <name>.cpp with its ctypes signatures set by
+    ``configure`` (None if it cannot be built; probed once per process)."""
+    if name not in _CACHE:
+        lib = _compile_and_load(name)
         if lib is not None:
-            lib.periodic_gather.restype = ctypes.c_int
-            lib.periodic_gather.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int64] * 11), ctypes.c_int,
-            ]
-        _CACHE["staging"] = lib
-    return _CACHE["staging"]
+            configure(lib)
+        _CACHE[name] = lib
+    return _CACHE[name]
+
+
+def _load_staging():
+    def configure(lib):
+        lib.periodic_gather.restype = ctypes.c_int
+        lib.periodic_gather.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int64] * 11), ctypes.c_int,
+        ]
+
+    return _get_lib("staging", configure)
+
+
+def _load_fof():
+    def configure(lib):
+        lib.fof_labels.restype = ctypes.c_int
+        lib.fof_labels.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+        ]
+
+    return _get_lib("fof", configure)
 
 
 def native_staging_available() -> bool:
     return _load_staging() is not None
+
+
+def native_fof_available() -> bool:
+    return _load_fof() is not None
 
 
 def periodic_gather(src: np.ndarray, start, out_shape, out: np.ndarray | None = None):
@@ -113,3 +142,37 @@ def periodic_gather(src: np.ndarray, start, out_shape, out: np.ndarray | None = 
     if rc != 0:
         raise ValueError(f"native periodic_gather failed with code {rc}")
     return out
+
+
+def fof_labels(positions: np.ndarray, boxsize: float, linking_length: float,
+               n_threads: int | None = None):
+    """Union-find root label per particle, or None if the helper is unavailable.
+
+    Roots are the minimum particle index of each component, the
+    representative the numpy engine produces, so results are array-identical
+    to it at any thread count (the lock-free union-find hooks larger roots
+    under smaller; see fof.cpp).
+
+    ``n_threads``: workers for the pair-linking loop.  Default: the
+    ``JAX_NBODY_TORCH_FOF_THREADS`` environment variable, else all cores.
+    """
+    lib = _load_fof()
+    if lib is None:
+        return None
+    if n_threads is None:
+        n_threads = int(os.environ.get(FOF_THREADS_ENV, "0"))
+    pos = np.ascontiguousarray(positions, np.float32)
+    if pos.ndim != 2 or pos.shape[1] != 3:
+        raise ValueError(f"positions must be (Np, 3), got {pos.shape}")
+    labels = np.empty(len(pos), np.int64)
+    rc = lib.fof_labels(
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(len(pos)),
+        ctypes.c_double(float(boxsize)),
+        ctypes.c_double(float(linking_length)),
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int(int(n_threads)),
+    )
+    if rc != 0:
+        raise ValueError(f"native fof_labels failed with code {rc}")
+    return labels

@@ -1,5 +1,6 @@
-"""Parameter utilities of the PyTorch port: trees, ``.npz`` interchange with
-the JAX package, checkpoints and the map2map torch-checkpoint import."""
+"""Utilities of the PyTorch port: parameter trees, ``.npz`` interchange with
+the JAX package, checkpoints and the map2map torch-checkpoint import, and
+device synchronization for timing (``timing``, ``profiling``)."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .params import (
@@ -11,6 +12,7 @@ from .params import (
     tree_cast,
     tree_to,
 )
+from .timing import force_sync
 from .torch_convert import convert_torch_state_dict, default_key_map, load_torch_checkpoint
 
 __all__ = [
@@ -26,4 +28,5 @@ __all__ = [
     "convert_torch_state_dict",
     "default_key_map",
     "load_torch_checkpoint",
+    "force_sync",
 ]

@@ -371,6 +371,12 @@ def test_port_import_loads_no_jax():
         "import jax_nbody_emulator_with_dj_tpu_torch.ops.winograd_cuda\n"
         "import jax_nbody_emulator_with_dj_tpu_torch.native\n"
         "import jax_nbody_emulator_with_dj_tpu_torch.experiments.memory_points\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.science\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.pipeline\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.utils.timing\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.utils.profiling\n"
+        "from jax_nbody_emulator_with_dj_tpu_torch.science import halos\n"
+        "assert halos.native_fof is t.native.fof_labels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('jax_nbody_emulator_with_dj_tpu.')\n"
         "       or m == 'jax_nbody_emulator_with_dj_tpu']\n"
