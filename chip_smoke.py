@@ -42,7 +42,13 @@ the CPU at 128^3, FoF from card tensors, the pipeline's functions timed at
 512^3) and the science pipeline (``pipeline``: ``run_lpt_emulator_pipeline``
 at 512^3 disp+vel and 256^3 disp with ``runtime="auto"``, two emulator calls
 each, B2 / B1 launching, the Gaussian random field's P(k) against its EH98
-input).
+input).  Then the multi-device layer on a (2, 2, 2) mesh of eight virtual
+shards on the card (``sharded``: the sharded hierarchical runtime against the
+single-device one at 32^3 float32, 256^3 and the 512^3 headline vel box,
+B1 / B2 launching on every shard, and a style box folded once per call;
+``sharded_science``: every sharded science function against its single-device
+counterpart at 128^3 on (2, 2, 2) and (4, 2, 1), the GRF -> 1LPT -> density ->
+P(k) chain timed at 512^3; ``dryrun``: ``parallel.dryrun.dryrun_multichip(8)``).
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -1286,6 +1292,331 @@ def phase_pipeline(card):
     return launches
 
 
+SHARDED_MESH = (2, 2, 2)
+SHARDED_N = 256  # held against the single-device runtime, disp and vel
+SHARDED_HEADLINE_N = 512  # the headline vel box, sharded and on one device
+SHARDED_STYLE_N = 128  # one fold per call
+SHARDED_SCIENCE_N = 128
+GATE_SHARDED_F32 = 2e-4  # rel max, float32 disp with the kernels off: float reordering only
+
+
+def _virtual_mesh(shape):
+    """A mesh of ``prod(shape)`` virtual shards on the one card."""
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, devices=[torch.device("cuda")] * int(np.prod(shape)))
+
+
+def _sharded_errors(field, ref, vel):
+    """Rel max (and, for a velocity, rms) error of a ``ShardedField`` against a
+    card tensor of the whole box, block by block on the card (no gather)."""
+    diff = ref_max = 0.0
+    sq_d = sq_r = s_d = s_r = 0.0
+    for i, part in enumerate(field.parts):
+        r = ref[field.index(i)].double()
+        d = part.double() - r
+        diff, ref_max = max(diff, d.abs().max().item()), max(ref_max, r.abs().max().item())
+        sq_d, sq_r = sq_d + (d * d).sum().item(), sq_r + (r * r).sum().item()
+        s_d, s_r = s_d + d.sum().item(), s_r + r.sum().item()
+    count = float(np.prod(field.shape))
+    errs = {"rel_max_err": diff / ref_max}
+    if vel:  # std(v1 - v0) / std(v0), as _rms
+        errs["rms_err"] = ((sq_d / count - (s_d / count) ** 2)
+                           / (sq_r / count - (s_r / count) ** 2)) ** 0.5
+    return errs
+
+
+def _held_sharded(label, outs, refs, vel, disp_gate, vel_gate, **extra):
+    errs = {"disp": _sharded_errors(outs[0], refs[0], False)}
+    ok = errs["disp"]["rel_max_err"] < disp_gate
+    if vel:
+        errs["vel"] = _sharded_errors(outs[1], refs[1], True)
+        ok = ok and errs["vel"]["rms_err"] < vel_gate
+    log("sharded", case=label, errors=errs, disp_gate=disp_gate,
+        vel_gate=vel_gate if vel else None, **extra)
+    if not ok:
+        raise RuntimeError(f"sharded {label}: against the single-device box: {errs}")
+
+
+def phase_sharded(card):
+    """The sharded hierarchical runtime (``parallel.ShardedHierarchicalProcessor``)
+    on a (2, 2, 2) mesh of eight virtual shards on the one card, premodulated
+    disp and disp+vel models at full width (``mid_chan=64``), each held against
+    the single-device ``HierarchicalProcessor`` on the same box and weights:
+    32^3 float32 boxes with the kernels off (disp rel max 2e-4, vel rms 1e-3),
+    256^3 bf16 boxes with the kernels on (section 2's kernel gates; B1 / B2
+    must launch on the sharded path), the 512^3 headline vel box (per-phase and
+    exchange ms, margin bytes per boundary, peak against ``memory_audit``, B2
+    launches, the single-device box's time in the same process) and a 128^3
+    style vel box (one fold per call).  Returns the launches of each sharded run."""
+    from jax_nbody_emulator_with_dj_tpu_torch import HierarchicalProcessor
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel import ShardedHierarchicalProcessor
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel import sharded_hierarchical as sh
+
+    mesh = _virtual_mesh(SHARDED_MESH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    launches = {}
+
+    def box_of(n):
+        return torch.randn((3, n, n, n), generator=gen, device="cuda")
+
+    def single(emu, cfg, box):
+        out = HierarchicalProcessor(emu.model, emu.params, cfg, device="cuda").process_box(
+            box, 0.5, 0.3, as_numpy=False)
+        return out if isinstance(out, tuple) else (out,)
+
+    def sharded(proc, box, **kw):
+        out = proc.process_box(box, 0.5, 0.3, **kw)
+        return out if isinstance(out, tuple) else (out,)
+
+    # 32^3 (16^3 a shard), float32, kernels off: float reordering only
+    box = box_of(32)
+    for vel in (False, True):
+        emu = _emulator(vel, 1)
+        cfg = _config(32, slab=8, tile=(16, 16, 16), dtype=torch.float32, wino=False)
+        proc = ShardedHierarchicalProcessor(emu.model, emu.params, mesh, cfg)
+        _held_sharded(f"32_{'vel' if vel else 'disp'}_f32", sharded(proc, box),
+                      single(emu, cfg, box), vel, GATE_SHARDED_F32, GATE_F32_VEL,
+                      local=list(proc.config.size))
+
+    # 256^3, bf16, kernels on
+    n = SHARDED_N
+    box = box_of(n)
+    for vel in (False, True):
+        emu = _emulator(vel, 0)
+        cfg = _config(n, slab=32, tile=(128,) * 3, dtype=torch.bfloat16)
+        ref = single(emu, cfg, box)
+        proc = ShardedHierarchicalProcessor(emu.model, emu.params, mesh, cfg)
+        sharded(proc, box)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = sharded(proc, box)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = f"sharded_{n}_{'vel' if vel else 'disp'}"
+        launches[label] = _launch_counts()
+        _held_sharded(label, out, ref, vel, GATE_SLICE, GATE_VEL, wall_s=wall,
+                      launches=launches[label], local=list(proc.config.size),
+                      tile1=proc.config.tile1)
+        kernel = "B2" if vel else "B1"
+        if launches[label][kernel] <= 0:
+            raise RuntimeError(f"{label}: {kernel} launched 0 times: {launches[label]}")
+        del emu, ref, proc, out
+        torch.cuda.empty_cache()
+
+    # the 512^3 headline vel box: one device, then sharded, in this process
+    n = SHARDED_HEADLINE_N
+    box = box_of(n)
+    emu = _emulator(True, 0)
+    cfg = _config(n, slab=32, tile=(128,) * 3, dtype=torch.bfloat16)  # the default geometry
+    one = HierarchicalProcessor(emu.model, emu.params, cfg, device="cuda")
+    one.process_box(box, 0.5, 0.3, as_numpy=False)  # warm-up
+    torch.cuda.synchronize()
+    # peaks: above what was allocated before the call (the box; for the sharded call
+    # also the single-device outputs, kept to hold it against)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = one.process_box(box, 0.5, 0.3, as_numpy=False)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_peak = torch.cuda.max_memory_allocated() - base
+    del one
+    torch.cuda.empty_cache()
+    proc = ShardedHierarchicalProcessor(emu.model, emu.params, mesh, cfg)
+    t0 = time.perf_counter()
+    sharded(proc, box)  # warm-up
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = sharded(proc, box, profile=True)
+    wall = time.perf_counter() - t0
+    label = f"sharded_{n}_vel"
+    launches[label] = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    audit = proc.memory_audit()
+    _held_sharded(label, out, ref, True, GATE_SLICE, GATE_VEL, card=card, wall_s=wall,
+                  first_call_s=first_s, single_device_s=single_s,
+                  single_device_peak=single_peak,
+                  phase_ms={k: round(v * 1e3, 3) for k, v in proc.last_timings.items()},
+                  halo_bytes=proc.last_halo_bytes, max_memory_allocated=peak,
+                  memory_audit_max_total=audit["max_total"],
+                  memory_audit_max_phase=audit["devices"][audit["max_device"]]["max_phase"],
+                  launches=launches[label], local=list(proc.config.size),
+                  slab=proc.config.slab, tile=list(proc.config.tile), tile1=proc.config.tile1)
+    if launches[label]["B2"] <= 0:
+        raise RuntimeError(f"{label}: B2 launched 0 times: {launches[label]}")
+    del emu, ref, proc, out, box
+    torch.cuda.empty_cache()
+
+    # a style vel box: one fold per call, shared by the eight shards
+    n = SHARDED_STYLE_N
+    box = box_of(n)
+    emu = _emulator(True, 0, style=True)
+    cfg = _config(n, slab=32, tile=(128,) * 3, dtype=torch.bfloat16)
+    ref = single(emu, cfg, box)
+    proc = ShardedHierarchicalProcessor(emu.model, emu.params, mesh, cfg)
+    folds = []
+    fold = sh._LocalHierarchical._fold_exec
+    sh._LocalHierarchical._fold_exec = lambda self, z, Om: folds.append(1) or fold(self, z, Om)
+    try:
+        sharded(proc, box)  # warm-up
+        torch.cuda.synchronize()
+        folds.clear()
+        _reset_counts()
+        out = sharded(proc, box, profile=True)
+    finally:
+        sh._LocalHierarchical._fold_exec = fold
+    label = f"sharded_{n}_style_vel"
+    launches[label] = _launch_counts()
+    _held_sharded(label, out, ref, True, GATE_SLICE, GATE_VEL, folds_per_call=len(folds),
+                  fold_ms=proc.last_timings["fold"] * 1e3, launches=launches[label],
+                  phase_ms={k: round(v * 1e3, 3) for k, v in proc.last_timings.items()})
+    if len(folds) != 1 or launches[label]["B2"] <= 0:
+        raise RuntimeError(f"{label}: {len(folds)} folds a call, launches {launches[label]}")
+    del emu, ref, proc, out, box
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded_science(card):
+    """The sharded science toolkit on the card: at 128^3 on (2, 2, 2) and (4, 2, 1)
+    meshes of virtual shards, each ``*_sharded`` function against the port's
+    single-device function on the card (the GRF and the mode injection through
+    given noise), at section 2's science gates; then the GRF -> 1LPT -> CIC
+    density (deconvolved) -> P(k) chain at 512^3 on (2, 2, 2) and on one device,
+    ms per stage (host clock, a device sync after each stage, after one warm-up
+    chain)."""
+    from jax_nbody_emulator_with_dj_tpu_torch import science as sci
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel import ShardedField
+    from jax_nbody_emulator_with_dj_tpu_torch.science import grf, mas, resize
+
+    dev = torch.device("cuda")
+    n, box = SHARDED_SCIENCE_N, 500.0
+    k_tab = np.logspace(-4, 2, 512)
+    p_tab = sci.eisenstein_hu_pk(k_tab)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = torch.randn((n, n, n), generator=gen, device=dev)
+    noise_up = torch.randn((2 * n,) * 3, generator=gen, device=dev)
+    delta = grf._colour_noise(noise, box, k_tab, p_tab)
+    psi = sci.zeldovich_displacement(delta, box)
+    delta_nl = sci.displacement_to_density(psi, box)
+    coarse = delta[::2, ::2, ::2].contiguous()
+    thr = [-0.5, 0.0, 0.5]
+    thetas = np.linspace(0.2, 3.0, 4)
+    margin = n // 8  # 16 cells: the (4, 2, 1) mesh's x blocks are n/4 deep
+
+    def field(x):
+        return x.gather() if isinstance(x, ShardedField) else x
+
+    for shape in (SHARDED_MESH, (4, 2, 1)):
+        mesh = _virtual_mesh(shape)
+        tag = "x".join(map(str, shape))
+        cases = [
+            ("grf", "fft", sci.gaussian_random_field_sharded(None, n, mesh, box, k_tab, p_tab,
+                                                             white=noise), delta),
+            ("zeldovich_displacement", "fft", sci.zeldovich_displacement_sharded(delta, mesh, box),
+             psi),
+            ("deposit_displacement", "deposit",
+             sci.deposit_displacement_sharded(psi, mesh, box, worder=2, margin=margin),
+             mas.deposit_displacement(psi, box, worder=2)),
+            ("displacement_to_density", "deposit",
+             sci.displacement_to_density_sharded(psi, mesh, box, margin=margin), delta_nl),
+            ("power_spectrum", "pk", sci.power_spectrum_sharded(delta_nl, mesh, box)[1],
+             sci.power_spectrum(delta_nl, box)[1]),
+            ("cross_power", "signed", sci.cross_power_sharded(delta_nl, delta, mesh, box)[1],
+             sci.cross_power(delta_nl, delta, box)[1]),
+            ("transfer_and_correlation", "signed",
+             torch.stack(sci.transfer_and_correlation_sharded(delta_nl, delta, mesh, box)),
+             torch.stack(sci.transfer_and_correlation(delta_nl, delta, box))),
+            ("minkowski_functionals", "equal",
+             sci.minkowski_functionals_sharded(delta_nl, thr, mesh),
+             sci.minkowski_functionals(delta_nl, thr)),
+            ("upsample_modes", "fft",
+             sci.upsample_modes_sharded(coarse, n, mesh, box, k_tab, p_tab, white=noise),
+             resize._upsample_modes_from_noise(coarse, noise, n, box, k_tab, p_tab)),
+            ("upsample_fourier", "fft", sci.upsample_fourier_sharded(delta, 2 * n, mesh),
+             sci.upsample_fourier(delta, 2 * n)),
+            ("downsample_average", "fft", sci.downsample_average_sharded(delta, n // 2, mesh),
+             sci.downsample_average(delta, n // 2)),
+            ("gaussian_smooth", "fft", sci.gaussian_smooth_sharded(delta, mesh, box, 8.0),
+             sci.gaussian_smooth(delta, box, 8.0)),
+        ]
+        for name, kind, got, ref in cases:
+            _science_compare(f"sharded_{tag}_{name}", field(got), ref, kind)
+            del got
+        bi_s = sci.reduced_bispectrum_sharded(delta_nl, mesh, box, 0.1, 0.15, thetas)
+        bi_1 = sci.reduced_bispectrum(delta_nl, box, 0.1, 0.15, thetas)
+        for key in ("B", "Q", "P3"):
+            _science_compare(f"sharded_{tag}_reduced_bispectrum_{key}", bi_s[key], bi_1[key],
+                             "bispectrum")
+        m_s = sci.summary_metrics_sharded(delta_nl, delta, mesh, box)
+        m_1 = sci.summary_metrics(delta_nl, delta, box)
+        _science_compare(f"sharded_{tag}_summary_metrics", [m_s[k] for k in sorted(m_1)],
+                         [m_1[k] for k in sorted(m_1)], "signed")
+        torch.cuda.empty_cache()
+    del noise, noise_up, delta, psi, delta_nl, coarse
+
+    # the chain at 512^3: sharded on (2, 2, 2) and on one device
+    nt, side = SCIENCE_TIMED_N, 1000.0
+    mesh = _virtual_mesh(SHARDED_MESH)
+
+    def chain_sharded():
+        d = sci.gaussian_random_field_sharded(torch.Generator(device=dev).manual_seed(0), nt,
+                                              mesh, side, k_tab, p_tab)
+        yield "gaussian_random_field"
+        p = sci.zeldovich_displacement_sharded(d, mesh, side)
+        yield "zeldovich_displacement"
+        rho = sci.displacement_to_density_sharded(p, mesh, side, worder=2, margin=nt // 16)
+        del p
+        yield "displacement_to_density_cic_deconvolved"
+        sci.power_spectrum_sharded(rho, mesh, side)
+        yield "power_spectrum"
+
+    def chain_single():
+        d = sci.gaussian_random_field(torch.Generator(device=dev).manual_seed(0), nt, side,
+                                      k_tab, p_tab, device=dev)
+        yield "gaussian_random_field"
+        p = sci.zeldovich_displacement(d, side)
+        yield "zeldovich_displacement"
+        rho = sci.displacement_to_density(p, side, worder=2)
+        del p
+        yield "displacement_to_density_cic_deconvolved"
+        sci.power_spectrum(rho, side)
+        yield "power_spectrum"
+
+    for label, chain in (("sharded_2x2x2", chain_sharded), ("single_device", chain_single)):
+        for _ in chain():  # warm-up: cuFFT plans, allocator
+            pass
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = {}
+        t0 = time.perf_counter()
+        for stage in chain():
+            torch.cuda.synchronize()
+            ms[stage] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+        log("sharded_science_512", run=label, size=nt, card=card, ms=ms, total_ms=sum(ms.values()),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun():
+    """``parallel.dryrun.dryrun_multichip(8)`` on the card: every sharded path
+    on eight virtual shards, its report lines logged."""
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(8)
+    log("dryrun", seconds=time.perf_counter() - t0, lines=lines)
+    torch.cuda.empty_cache()
+
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One entry of the ``kernels`` line: the worst error over the kernel's
     rows, the times and the bound of its first timed row (the phase-3 shape)."""
@@ -1319,6 +1650,9 @@ def main():
     phase_planner()
     phase_science()
     path_launches.update(phase_pipeline(card))
+    path_launches.update(phase_sharded(card))
+    phase_sharded_science(card)
+    phase_dryrun()
     direct_rows = phase_direct_kernel()
     stripe_rows = phase_stripe_kernel()
     wino43_rows = phase_wino43_kernel()
@@ -1340,7 +1674,8 @@ def main():
     kernels[0]["style_launches"] = launches_style[False]["B1"]
     kernels[1]["style_launches"] = launches_style[True]["B2"]
     # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths; per
-    # pipeline run (two emulator calls) of the 512^3 vel and 256^3 disp pipelines
+    # pipeline run (two emulator calls) of the 512^3 vel and 256^3 disp pipelines; per box
+    # of the sharded runs on eight virtual shards (2, 2, 2)
     for entry, key in ((kernels[0], "B1"), (kernels[1], "B2")):
         entry["path_launches"] = {path: lc[key] for path, lc in path_launches.items()}
     print(card)

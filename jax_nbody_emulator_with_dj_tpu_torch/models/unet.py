@@ -34,6 +34,52 @@ def input_margin(levels: int = 3) -> int:
     return 12 * 2 ** (levels - 1)
 
 
+def _encoder_sizes(n: int, levels: int):
+    """Spatial sizes along the encoder; raises on invalid sizes."""
+    sizes = []
+    h = n - 8  # conv_l00 + conv_l01 (CACA each: -4)
+    if h <= 0:
+        raise ValueError(f"input size {n} too small")
+    sizes.append(h)  # skip 0
+    for i in range(levels):
+        if h % 2:
+            raise ValueError(f"input size {n}: size {h} not divisible by 2 at down_l{i}")
+        h //= 2
+        if i < levels - 1:
+            h -= 4  # conv_l{i+1}
+            if h <= 0:
+                raise ValueError(f"input size {n} too small at level {i + 1}")
+            sizes.append(h)
+    return sizes, h
+
+
+def output_size(n: int, levels: int = 3) -> int:
+    """Output spatial size for input size ``n`` (raises if ``n`` is invalid)."""
+    skips, h = _encoder_sizes(n, levels)
+    h -= 4  # bottleneck
+    if h <= 0:
+        raise ValueError(f"input size {n} too small at bottleneck")
+    for i in range(levels - 1, 0, -1):
+        h = 2 * h  # up
+        if h > skips[i]:
+            raise ValueError(f"input size {n}: skip {i} smaller than upsampled path")
+        h -= 4  # conv_r{i}
+    h = 2 * h
+    if h > skips[0]:
+        raise ValueError(f"input size {n}: skip 0 smaller than upsampled path")
+    h -= 8  # conv_r00 + conv_r01
+    if h <= 0:
+        raise ValueError(f"input size {n} too small at head")
+    return h
+
+
+def valid_input_size(n: int, levels: int = 3) -> bool:
+    try:
+        return output_size(n, levels) > 0
+    except ValueError:
+        return False
+
+
 def unet_block_plan(levels: int = 3, in_chan: int = 3, out_chan: int = 3, mid_chan: int = 64):
     """Ordered (name, block_type, seq, cin, cout) plan."""
     mid2 = 2 * mid_chan

@@ -12,6 +12,13 @@ CUDA card.  Tables, halofit and the halo finder are host numpy.
 """
 
 from .bispectrum import reduced_bispectrum
+from .field_sharded import (
+    deconvolve_mas_sharded,
+    deposit_displacement_sharded,
+    displacement_to_density_sharded,
+    gaussian_random_field_sharded,
+    zeldovich_displacement_sharded,
+)
 from .grf import gaussian_random_field, white_noise_field
 from .halofit import halofit_pk
 from .halos import (
@@ -27,6 +34,12 @@ from .lpt import displacement_to_density, zeldovich_displacement
 from .mas import deconvolve_mas, deposit
 from .minkowski import minkowski_functionals
 from .powerspec import cross_power, power_spectrum, summary_metrics, transfer_and_correlation
+from .powerspec_sharded import (
+    cross_power_sharded,
+    power_spectrum_sharded,
+    summary_metrics_sharded,
+    transfer_and_correlation_sharded,
+)
 from .resize import (
     downsample_average,
     gaussian_smooth,
@@ -35,12 +48,34 @@ from .resize import (
     upsample_linear,
     upsample_modes,
 )
+from .resize_sharded import (
+    downsample_average_sharded,
+    gaussian_smooth_sharded,
+    upsample_fourier_sharded,
+    upsample_modes_sharded,
+)
+from .stats_sharded import minkowski_functionals_sharded, reduced_bispectrum_sharded
 
 __all__ = [
     "power_spectrum",
     "cross_power",
     "transfer_and_correlation",
     "summary_metrics",
+    "power_spectrum_sharded",
+    "cross_power_sharded",
+    "transfer_and_correlation_sharded",
+    "summary_metrics_sharded",
+    "gaussian_random_field_sharded",
+    "zeldovich_displacement_sharded",
+    "deposit_displacement_sharded",
+    "displacement_to_density_sharded",
+    "deconvolve_mas_sharded",
+    "minkowski_functionals_sharded",
+    "reduced_bispectrum_sharded",
+    "upsample_modes_sharded",
+    "upsample_fourier_sharded",
+    "downsample_average_sharded",
+    "gaussian_smooth_sharded",
     "eisenstein_hu_pk",
     "sigma_r",
     "normalize_sigma8",

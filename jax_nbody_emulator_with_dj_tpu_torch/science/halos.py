@@ -20,6 +20,7 @@ on numpy arrays on the host.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..cosmology import growth_factor
 from ..native import fof_labels as native_fof
@@ -360,42 +361,102 @@ def friends_of_friends_slabbed(
     """
     psi = to_numpy(psi)
     n = psi[0].shape[0]
-    slab_subset = _grid_slab_source(psi, n, float(boxsize), chunk)
+    slab_subset = _grid_slab_source([(psi, (0, 0, 0))], n, float(boxsize), chunk)
     return _fof_eulerian_slabs(
         slab_subset, n, float(boxsize), float(linking_length), nmin,
         n_slabs, chunk, return_labels, engine,
     )
 
 
-def _grid_slab_source(psi, n: int, L: float, chunk: int):
-    """Eulerian x-slab membership scans over the Lagrangian grid.
+def friends_of_friends_sharded(
+    shards,
+    n: int,
+    boxsize: float,
+    linking_length: float,
+    nmin: int = 20,
+    n_slabs: int = 8,
+    chunk: int = 4_000_000,
+    return_labels: bool = False,
+    engine: str = "auto",
+):
+    """FoF over a shard-decomposed displacement field, with no full-box array.
 
-    Returns ``slab_subset(x0, width) -> (positions, gids)`` streaming ``psi``
-    in x-row blocks: displacements are bounded by a few slab widths, so the
-    whole grid is scanned per slab, but only ``chunk``-sized row blocks are
-    ever materialized (``psi`` may be an ``np.memmap``).
+    Sharded runs leave the displacement spatially sharded over the device
+    mesh (``parallel/sharded_hierarchical.py``); this finder consumes the
+    per-shard pieces directly (numpy arrays, ``np.memmap``, ``.npy`` paths,
+    opened memory-mapped, zero-arg callables returning a piece, or torch
+    tensors on any device, such as a ``ShardedField``'s parts from its
+    ``pieces()``, each copied to the host only while it is scanned).
+    Particles are streamed shard by shard, bucketed into the same Eulerian
+    x-slab decomposition as :func:`friends_of_friends_slabbed`, and the slab
+    runs are stitched with its ghost-zone group merge.  Peak host memory is
+    one Eulerian slab (+2 ghost layers) of particles plus one piece.
+
+    Args:
+        shards: iterable of ``(piece, (i0, j0, k0))``: a (3, d, h, w)
+            displacement piece [Mpc/h] and its Lagrangian-grid voxel origin.
+            Pieces must tile the full N^3 grid disjointly.
+        n: global grid extent N.
+        boxsize: periodic box side [Mpc/h].
+        linking_length: absolute linking length b.
+        n_slabs: Eulerian x-slabs (width must be >= 2 b).
+        return_labels: build the (N^3,) label array (4 B/particle).
+
+    Returns:
+        dict with 'lengths', 'centers', 'n_groups' (and 'labels'), identical
+        (up to group ordering) to :func:`friends_of_friends` on the assembled
+        particle set.
+    """
+    resolved = []
+    for piece, origin in shards:
+        if isinstance(piece, str):
+            piece = np.load(piece, mmap_mode="r")
+        resolved.append((piece, tuple(int(o) for o in origin)))
+    slab_subset = _grid_slab_source(resolved, n, float(boxsize), chunk)
+    return _fof_eulerian_slabs(
+        slab_subset, n, float(boxsize), float(linking_length), nmin,
+        n_slabs, chunk, return_labels, engine,
+    )
+
+
+def _grid_slab_source(pieces, n: int, L: float, chunk: int):
+    """Eulerian x-slab membership scans over Lagrangian grid pieces.
+
+    Returns ``slab_subset(x0, width) -> (positions, gids)`` streaming each
+    piece in x-row blocks: displacements are bounded by a few slab widths,
+    so every piece must be scanned per slab, but only ``chunk``-sized row
+    blocks are ever materialized (pieces may be ``np.memmap``; a torch
+    tensor is copied to the host while it is scanned).
     """
     cell = np.float32(L / n)
-    q = np.arange(n, dtype=np.float32) * cell
 
     def slab_subset(x0: float, width: float):
         pos_parts, gid_parts = [], []
-        rows = max(1, int(chunk // (n * n)))
-        for r0 in range(0, n, rows):
-            r1 = min(r0 + rows, n)
-            px = np.mod(q[r0:r1, None, None] + np.asarray(psi[0][r0:r1], np.float32), L)
-            sel = np.mod(px - x0, L) < width
-            if not sel.any():
-                continue
-            py = np.mod(q[None, :, None] + np.asarray(psi[1][r0:r1], np.float32), L)
-            pz = np.mod(q[None, None, :] + np.asarray(psi[2][r0:r1], np.float32), L)
-            gid = (
-                (np.arange(r0, r1, dtype=np.int64)[:, None, None] * n
-                 + np.arange(n, dtype=np.int64)[None, :, None]) * n
-                + np.arange(n, dtype=np.int64)[None, None, :]
-            )
-            pos_parts.append(np.stack([px[sel], py[sel], pz[sel]], axis=-1))
-            gid_parts.append(gid[sel])
+        for piece, (i0, j0, k0) in pieces:
+            resolve = piece if not callable(piece) else piece()
+            if torch.is_tensor(resolve):
+                resolve = to_numpy(resolve)
+            d, h, w = resolve[0].shape
+            qx = np.arange(i0, i0 + d, dtype=np.float32) * cell
+            qy = np.arange(j0, j0 + h, dtype=np.float32) * cell
+            qz = np.arange(k0, k0 + w, dtype=np.float32) * cell
+            rows = max(1, int(chunk // max(h * w, 1)))
+            for r0 in range(0, d, rows):
+                r1 = min(r0 + rows, d)
+                px = np.mod(qx[r0:r1, None, None] + np.asarray(resolve[0][r0:r1], np.float32), L)
+                sel = np.mod(px - x0, L) < width
+                if not sel.any():
+                    continue
+                py = np.mod(qy[None, :, None] + np.asarray(resolve[1][r0:r1], np.float32), L)
+                pz = np.mod(qz[None, None, :] + np.asarray(resolve[2][r0:r1], np.float32), L)
+                gid = (
+                    (np.arange(i0 + r0, i0 + r1, dtype=np.int64)[:, None, None] * n
+                     + np.arange(j0, j0 + h, dtype=np.int64)[None, :, None]) * n
+                    + np.arange(k0, k0 + w, dtype=np.int64)[None, None, :]
+                )
+                pos_parts.append(np.stack([px[sel], py[sel], pz[sel]], axis=-1))
+                gid_parts.append(gid[sel])
+            del resolve
         if not pos_parts:
             return np.zeros((0, 3), np.float32), np.zeros(0, np.int64)
         return np.concatenate(pos_parts), np.concatenate(gid_parts)

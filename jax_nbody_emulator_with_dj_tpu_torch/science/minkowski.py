@@ -39,7 +39,11 @@ def _complex_counts(b):
 def _mf_single(delta, threshold: float):
     n = delta.shape[0]
     n0, n1, n2, n3 = (c.float() for c in _complex_counts(delta > threshold))
-    vol = float(n) ** 3
+    return _functionals(n0, n1, n2, n3, float(n) ** 3)
+
+
+def _functionals(n0, n1, n2, n3, vol: float):
+    """[V0, V1, V2, V3] (float32) from the counts (float32) of a grid of ``vol`` cells."""
     return torch.stack([
         n3 / vol,
         (2.0 / 9.0) * (n2 - 3 * n3) / vol,
