@@ -49,6 +49,12 @@ B1 / B2 launching on every shard, and a style box folded once per call;
 ``sharded_science``: every sharded science function against its single-device
 counterpart at 128^3 on (2, 2, 2) and (4, 2, 1), the GRF -> 1LPT -> density ->
 P(k) chain timed at 512^3; ``dryrun``: ``parallel.dryrun.dryrun_multichip(8)``).
+Then the command-line drivers (``cli``: each module of ``cli/`` called as
+``main([...])`` at full width: ``run_emulator`` at 256^3 with B2, the
+comparison against its density on one device and on eight virtual shards,
+``run_batch`` with the per-box fold and B2 against ``process_box``, FoF by
+slabs and by engine, the upsampling diagnostic, the examples and the sharded
+driver).
 
 Every phase prints one line; any failure raises (non-zero exit).  The line
 before the last is a JSON summary of the kernels, the last one
@@ -1617,6 +1623,235 @@ def phase_dryrun():
     torch.cuda.empty_cache()
 
 
+CLI_N = 256  # run_emulator's box, and the box quijote_comparison and halos read
+CLI_BATCH_N = 128  # run_batch's two boxes
+CLI_BATCH_COSMO = {"box_a.npy": {"z": 0.0, "Om": 0.3175}, "box_b.npy": {"z": 0.5, "Om": 0.28}}
+GATE_CLI_C = 1e-3  # mean (1 - C(k)) over k <= kmax: cross-correlation >= 0.999
+GATE_CLI_MESH_RTOL = 1e-5  # sharded metrics vs single-device: the spectra's gate ...
+GATE_CLI_MESH_ATOL = 1e-4  # ... plus the deposit's, as each run deposits anew (float atomics)
+GATE_UPSAMPLE = 0.2  # |median P_fine / P_EH98 - 1|: the JAX package's gate (tests/test_science.py)
+GATE_UPSAMPLE_C = 0.5  # C(k) of down(up(x)) against x at low k (tests/test_science.py)
+EMU_META_KEYS = ("seed", "n_part", "boxsize", "z", "cosmology", "pk_table", "growth_factor",
+                 "premodulate", "compute_vel", "ndiv", "runtime", "precision", "mas_worder",
+                 "deconvolve", "density_res", "num_sims", "timings", "voxels_per_second",
+                 "device", "card")
+
+
+def _cli_step(step, fn, **extra):
+    """One step of the ``cli`` phase: the kernels' counts set to 0 just before
+    ``fn`` and read just after; logs its seconds, peak and launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    log("cli", step=step, seconds=seconds, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches, **extra)
+    return out, launches
+
+
+def _finite(path, shape):
+    a = np.load(path)
+    if a.shape != shape or not np.isfinite(a).all():
+        raise RuntimeError(f"{path.name}: bad field, shape {a.shape}")
+    return a
+
+
+def phase_cli(card):
+    """The port's command-line drivers (``cli/``), each ``main([...])`` called in
+    this process on the card at full width (``mid_chan=64``, bf16, seeded random
+    weights) in a temporary directory:
+
+    1. ``run_emulator`` (seed 42, 256^3, 500 Mpc/h, ``--runtime auto``, disp+vel):
+       finite fields, the pipeline's metadata keys, B2 at every pair site (no B1);
+    2. ``quijote_comparison`` on step 1's linear field, with step 1's emulated
+       density as the target (the premodulated displacement model, subbox
+       runtime, ``--ndiv 2 2 2``): the emulator's cross-correlation with the target >= 0.999 up
+       to ``--kmax`` and above 1LPT's; then with ``--mesh 2 2 2 --devices cuda``
+       (the sharded estimators on eight virtual shards): the same metrics;
+    3. ``run_batch`` over two 128^3 boxes at two cosmologies, ``--style
+       --runtime auto``: one fold per box, B2 at every pair site, outputs equal
+       to ``create_emulator(...).process_box`` on the same boxes; then without
+       ``--style`` (a premodulated emulator per cosmology): within the kernel
+       gates of the style run;
+    4. ``halos`` on step 1's displacement and on a clumped 128^3 field, native
+       engine, 1 and 2 slabs: equal catalogues (the clumped one not empty);
+    5. ``fof_scale_demo --n 256 --engines native numpy``: equal catalogues;
+    6. ``upsampling --n-in 128 --factor 2``: P(k) against EH98 and the round
+       trip's C(k) within the JAX package's gates;
+    7. ``basic_usage``: its six examples;
+    8. ``run_pod --size 128 --mesh 2 2 2 --devices cuda --ic-seed 5 --validate``.
+
+    Returns the launches of steps 1 and 3 (per run) for ``path_launches``."""
+    import tempfile
+
+    from jax_nbody_emulator_with_dj_tpu_torch import create_emulator, hierarchical
+    from jax_nbody_emulator_with_dj_tpu_torch.cli import (
+        _common,
+        basic_usage,
+        fof_scale_demo,
+        halos,
+        quijote_comparison,
+        run_batch,
+        run_emulator,
+        run_pod,
+        upsampling,
+    )
+    from jax_nbody_emulator_with_dj_tpu_torch.models.unet import init_unet
+
+    n, nb = CLI_N, CLI_BATCH_N
+    dev = ["--device", "cuda"]
+    path = {}
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        tmp = Path(tmp)
+        # 1. run_emulator
+        emu = tmp / "emu"
+        res, path["cli_run_emulator_256_vel"] = _cli_step("run_emulator", lambda: run_emulator.main(
+            ["--seed", "42", "--n-part", str(n), "--boxsize", "500", "--runtime", "auto",
+             "--compute-vel", "--random-params", "--out-dir", str(emu), *dev]))
+        for name in ("delta_lin", "delta_lpt", "delta_emu"):
+            _finite(emu / f"{name}.npy", (n,) * 3)
+        for name in ("psi_emu", "vel_emu"):
+            _finite(emu / f"{name}.npy", (3,) + (n,) * 3)
+        missing = [k for k in EMU_META_KEYS if k not in res["metadata"]]
+        launches = path["cli_run_emulator_256_vel"]
+        log("cli_check", step="run_emulator", files=res["files"], missing_metadata=missing,
+            card=res["metadata"]["card"], timings=res["metadata"]["timings"])
+        if missing or launches["B2"] <= 0 or launches["B1"] != 0:
+            raise RuntimeError(f"run_emulator: metadata missing {missing}, launches {launches}")
+
+        # 2. quijote_comparison, single device and on eight virtual shards
+        q_args = ["--ic-delta", str(emu / "delta_lin.npy"), "--target-delta",
+                  str(emu / "delta_emu.npy"), "--n-part", str(n), "--boxsize", "500",
+                  "--ndiv", "2", "2", "2", "--random-params", *dev]
+        q, _ = _cli_step("quijote_comparison", lambda: quijote_comparison.main(
+            q_args + ["--out-dir", str(tmp / "q")]))
+        qm, _ = _cli_step("quijote_comparison_mesh", lambda: quijote_comparison.main(
+            q_args + ["--out-dir", str(tmp / "qm"), "--mesh", "2", "2", "2", "--devices", "cuda"]))
+        m, mm = q["metadata"]["metrics"], qm["metadata"]["metrics"]
+        c_emu, c_lpt = (m[k]["mean_1_minus_C"] for k in ("emulator_vs_target", "lpt_vs_target"))
+        mesh_err = max(abs(mm[w][k] - v) - GATE_CLI_MESH_RTOL * abs(v)
+                       for w in m for k, v in m[w].items())
+        log("cli_check", step="quijote_comparison", timings=q["metadata"]["timings"],
+            mesh_timings=qm["metadata"]["timings"], metrics=m, mesh_metrics=mm,
+            emu_mean_1_minus_c=c_emu, lpt_mean_1_minus_c=c_lpt, gate=GATE_CLI_C,
+            mesh_excess_over_rtol=mesh_err, mesh_atol=GATE_CLI_MESH_ATOL)
+        if not (c_emu <= GATE_CLI_C and c_emu < c_lpt):
+            raise RuntimeError(f"quijote_comparison: 1 - C emulator {c_emu}, 1LPT {c_lpt}")
+        if set(mm) != set(m) or mesh_err > GATE_CLI_MESH_ATOL:
+            raise RuntimeError(f"quijote_comparison --mesh: {mm} against {m}")
+
+        # 3. run_batch, --style then premodulated, against process_box
+        bdir = tmp / "batch_in"
+        bdir.mkdir()
+        boxes = {}
+        for i, name in enumerate(CLI_BATCH_COSMO):
+            boxes[name] = np.random.default_rng(20 + i).standard_normal(
+                (3, nb, nb, nb)).astype(np.float32)
+            np.save(bdir / name, boxes[name])
+        (tmp / "cosmo.json").write_text(json.dumps(CLI_BATCH_COSMO))
+        b_args = ["--inputs", str(bdir / "*.npy"), "--cosmo-json", str(tmp / "cosmo.json"),
+                  "--runtime", "auto", "--random-params", *dev]
+        cfg = _common.plan_config(nb, torch.device("cuda"), dtype=torch.bfloat16,
+                                  compute_vel=True, output_dtype=torch.float32, mid_chan=64)
+        ref_emu = create_emulator(premodulate=False, compute_vel=True,
+                                  params=init_unet(0, style=True, vel=True), processor_config=cfg,
+                                  device="cuda")
+        refs = {name: ref_emu.process_box(box, CLI_BATCH_COSMO[name]["z"],
+                                          CLI_BATCH_COSMO[name]["Om"])
+                for name, box in boxes.items()}
+        del ref_emu
+        folds = []
+        fold_exec = hierarchical.HierarchicalProcessor._fold_exec
+
+        def counted_fold(self, z, Om):
+            folds.append((z, Om))
+            return fold_exec(self, z, Om)
+
+        hierarchical.HierarchicalProcessor._fold_exec = counted_fold
+        try:
+            bs, path["cli_run_batch_style_128x2"] = _cli_step("run_batch_style", lambda: run_batch.main(
+                b_args + ["--style", "--out-dir", str(tmp / "bs")]))
+        finally:
+            hierarchical.HierarchicalProcessor._fold_exec = fold_exec
+        bp, path["cli_run_batch_premod_128x2"] = _cli_step("run_batch_premodulated", lambda: run_batch.main(
+            b_args + ["--out-dir", str(tmp / "bp")]))
+        errs = {}
+        for name in boxes:
+            stem = Path(name).stem
+            style = [np.load(tmp / "bs" / f"{stem}_{k}.npy") for k in ("disp", "vel")]
+            premod = [np.load(tmp / "bp" / f"{stem}_{k}.npy") for k in ("disp", "vel")]
+            errs[stem] = dict(
+                style_vs_process_box=max(_rel(s, r) for s, r in zip(style, refs[name])),
+                premod_disp_rel_max_err=_rel(premod[0], style[0]),
+                premod_vel_rms_err=_rms(premod[1], style[1]))
+        launches = path["cli_run_batch_style_128x2"]
+        log("cli_check", step="run_batch", folds=len(folds), errors=errs, records=bs["records"],
+            premod_records=bp["records"], disp_gate=GATE_SLICE, vel_gate=GATE_VEL)
+        if len(folds) != len(boxes) or launches["B2"] <= 0 or launches["B1"] != 0:
+            raise RuntimeError(f"run_batch --style: {len(folds)} folds, launches {launches}")
+        for stem, e in errs.items():
+            if (e["style_vs_process_box"] > 0.0 or e["premod_disp_rel_max_err"] > GATE_SLICE
+                    or e["premod_vel_rms_err"] > GATE_VEL):
+                raise RuntimeError(f"run_batch {stem}: {e}")
+
+        # 4. halos on step 1's displacement, one slab and two; random weights form no
+        # halos there, so also on a clumped 128^3 field (fof_scale_demo's), which does
+        np.save(tmp / "clumped.npy", fof_scale_demo.clumped_displacement(128, 500.0, 1.0))
+        for label, psi in (("emulated", emu / "psi_emu.npy"), ("clumped", tmp / "clumped.npy")):
+            cats = {}
+            for slabs in (1, 2):
+                h, _ = _cli_step(f"halos_{label}_{slabs}_slab", lambda: halos.main(
+                    ["--displacement", str(psi), "--boxsize", "500", "--engine", "native",
+                     "--n-slabs", str(slabs), "--out-dir", str(tmp / f"h_{label}_{slabs}"), *dev]))
+                cats[slabs] = np.sort(h["lengths"])
+            log("cli_check", step="halos", field=label,
+                n_halos={s: len(c) for s, c in cats.items()})
+            if not np.array_equal(cats[1], cats[2]) or (label == "clumped" and not len(cats[1])):
+                raise RuntimeError(f"halos ({label}): 1 slab {len(cats[1])} halos, 2 slabs "
+                                   f"{len(cats[2])}")
+
+        # 5. fof_scale_demo, both engines
+        f, _ = _cli_step("fof_scale_demo", lambda: fof_scale_demo.main(
+            ["--n", "256", "--engines", "native", "numpy", "--out", str(tmp / "fof.json"), *dev]))
+        c = {e: np.sort(v["lengths"]) for e, v in f["catalogues"].items()}
+        log("cli_check", step="fof_scale_demo", runs=f["record"]["runs"])
+        if not len(c["native"]) or not np.array_equal(c["native"], c["numpy"]):
+            raise RuntimeError(f"fof_scale_demo: {f['record']['runs']}")
+
+        # 6. upsampling
+        u, _ = _cli_step("upsampling", lambda: upsampling.main(
+            ["--n-in", "128", "--factor", "2", "--out-dir", str(tmp / "u"), *dev]))
+        um = u["metadata"]
+        log("cli_check", step="upsampling", metadata=um, gate=GATE_UPSAMPLE,
+            c_gate=GATE_UPSAMPLE_C)
+        if (abs(um["fine_pk_over_target_median"] - 1) > GATE_UPSAMPLE
+                or um["low_k_c_of_downsampled"] < GATE_UPSAMPLE_C):
+            raise RuntimeError(f"upsampling: {um}")
+
+        # 7. basic_usage
+        b, _ = _cli_step("basic_usage", lambda: basic_usage.main(dev))
+        if not (np.isfinite(b["style"]["disp"]).all() and np.isfinite(b["sharded"]["disp"]).all()):
+            raise RuntimeError("basic_usage: non-finite outputs")
+        log("cli_check", step="basic_usage", plan=b["plan"], direct=b["direct"])
+
+        # 8. run_pod on eight virtual shards
+        p, _ = _cli_step("run_pod", lambda: run_pod.main(
+            ["--size", "128", "--mesh", "2", "2", "2", "--devices", "cuda", "--ic-seed", "5",
+             "--validate", *dev]))
+        pk = p["pk"]["pk"][p["pk"]["modes"] > 0]
+        log("cli_check", step="run_pod", seconds=p["seconds"], shards=p["shards"],
+            pk_head=pk[:4].tolist())
+        if p["shards"] != 8 or not np.isfinite(pk).all() or not len(pk):
+            raise RuntimeError(f"run_pod: {p['shards']} shards, P(k) {pk}")
+    torch.cuda.empty_cache()
+    return path
+
+
 def _kernel_entry(name, source, replaces, launches, rows):
     """One entry of the ``kernels`` line: the worst error over the kernel's
     rows, the times and the bound of its first timed row (the phase-3 shape)."""
@@ -1653,6 +1888,7 @@ def main():
     path_launches.update(phase_sharded(card))
     phase_sharded_science(card)
     phase_dryrun()
+    path_launches.update(phase_cli(card))
     direct_rows = phase_direct_kernel()
     stripe_rows = phase_stripe_kernel()
     wino43_rows = phase_wino43_kernel()
@@ -1675,7 +1911,8 @@ def main():
     kernels[1]["style_launches"] = launches_style[True]["B2"]
     # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths; per
     # pipeline run (two emulator calls) of the 512^3 vel and 256^3 disp pipelines; per box
-    # of the sharded runs on eight virtual shards (2, 2, 2)
+    # of the sharded runs on eight virtual shards (2, 2, 2); per run of the cli drivers
+    # run_emulator (256^3 vel) and run_batch (two 128^3 vel boxes, style and premodulated)
     for entry, key in ((kernels[0], "B1"), (kernels[1], "B2")):
         entry["path_launches"] = {path: lc[key] for path, lc in path_launches.items()}
     print(card)

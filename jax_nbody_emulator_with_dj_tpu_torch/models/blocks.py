@@ -30,6 +30,7 @@ from ..ops import s2d
 from ..ops.conv3d import (
     conv1x1,
     conv3d,
+    conv3d_up,
     conv_down2,
     conv_up2,
     leaky_relu,
@@ -43,13 +44,18 @@ _KSIZE = {"conv": 3, "skip": 1, "down": 2, "up": 2}  # 'C', skip, 'D', 'U'
 
 
 def _run_conv(x, w, kind, in_fmt="NDHWC", out_fmt="NDHWC"):
-    """One conv of ``kind``; the resample convs are channels-last only."""
+    """One conv of ``kind``.  The resample convs take their matmul forms
+    (``conv_up2``, ``conv_down2``) when both formats are channels-last, and
+    the conv forms (``conv3d_up``, a stride-2 ``conv3d``) otherwise."""
+    channels_last = in_fmt == out_fmt == "NDHWC"
     if kind == "skip":
         return conv1x1(x, w, in_fmt=in_fmt, out_fmt=out_fmt)
     if kind == "up":
-        return conv_up2(x, w)
+        return conv_up2(x, w) if channels_last else conv3d_up(x, w, in_fmt=in_fmt, out_fmt=out_fmt)
     if kind == "down":
-        return conv_down2(x, w)
+        if channels_last:
+            return conv_down2(x, w)
+        return conv3d(x, w, stride=2, in_fmt=in_fmt, out_fmt=out_fmt)
     return conv3d(x, w, in_fmt=in_fmt, out_fmt=out_fmt)
 
 

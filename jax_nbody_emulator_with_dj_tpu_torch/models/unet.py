@@ -80,6 +80,14 @@ def valid_input_size(n: int, levels: int = 3) -> bool:
         return False
 
 
+def min_input_size(levels: int = 3) -> int:
+    """Smallest valid input size per axis (32 for 1 level, 104 for 3)."""
+    n = 2 * input_margin(levels) + 8
+    while not valid_input_size(n, levels):
+        n += 8
+    return n
+
+
 def unet_block_plan(levels: int = 3, in_chan: int = 3, out_chan: int = 3, mid_chan: int = 64):
     """Ordered (name, block_type, seq, cin, cout) plan."""
     mid2 = 2 * mid_chan

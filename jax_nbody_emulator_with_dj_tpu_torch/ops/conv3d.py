@@ -30,9 +30,29 @@ def dhwio_to_oidhw(w):
     return w.permute(4, 3, 0, 1, 2).contiguous()
 
 
-def conv3d(x, w, *, in_fmt: str = "NDHWC", out_fmt: str = "NDHWC"):
-    """VALID 3D convolution.  ``w`` is a DHWIO kernel, cast to ``x.dtype``."""
-    y = F.conv3d(to_ncdhw(x, in_fmt), dhwio_to_oidhw(w.to(x.dtype)))
+def conv3d(x, w, *, stride: int = 1, in_fmt: str = "NDHWC", out_fmt: str = "NDHWC"):
+    """VALID 3D convolution with an isotropic ``stride``.  ``w`` is a DHWIO
+    kernel, cast to ``x.dtype``.
+
+    The JAX function's ``accum_dtype`` (the dtype XLA writes the conv's
+    output in) is not taken: torch's conv accumulates in float32 and returns
+    ``x.dtype``, the JAX default.
+    """
+    y = F.conv3d(to_ncdhw(x, in_fmt), dhwio_to_oidhw(w.to(x.dtype)), stride=stride)
+    return from_ncdhw(y, out_fmt)
+
+
+def conv3d_up(x, w, *, in_fmt: str = "NDHWC", out_fmt: str = "NDHWC"):
+    """2x upsampling convolution: kernel 2 over the input dilated by 2 and
+    padded by 1 per side, so the output is twice the input per axis.
+
+    Every output voxel ``y[2i+r]`` sees one input voxel, ``W[1-r] . x[i]``:
+    a stride-2 transposed conv with the flipped kernel.  Equal to
+    ``conv_up2``, in either activation format.  No ``accum_dtype``, as for
+    :func:`conv3d`.
+    """
+    wt = torch.flip(w, (0, 1, 2)).permute(3, 4, 0, 1, 2).contiguous().to(x.dtype)  # (Ci, Co, K..)
+    y = F.conv_transpose3d(to_ncdhw(x, in_fmt), wt, stride=2)
     return from_ncdhw(y, out_fmt)
 
 

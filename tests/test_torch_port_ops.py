@@ -22,14 +22,14 @@ from jax_nbody_emulator_with_dj_tpu.ops import s2d as js2d
 from jax_nbody_emulator_with_dj_tpu.ops import style as jstyle
 from jax_nbody_emulator_with_dj_tpu.ops import winograd as jwino
 from jax_nbody_emulator_with_dj_tpu_torch import cosmology as tcosmo
-from jax_nbody_emulator_with_dj_tpu_torch.ops import conv3d as tconv
 from jax_nbody_emulator_with_dj_tpu_torch.ops import s2d as ts2d
 from jax_nbody_emulator_with_dj_tpu_torch.ops import style as tstyle
 from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd as twino
 from jax_nbody_emulator_with_dj_tpu_torch.ops import winograd_cuda
 
-# ``ops/__init__`` re-exports a function named conv3d over the module.
+# Both packages' ``ops/__init__`` re-export a function named conv3d over the module.
 jconv = importlib.import_module("jax_nbody_emulator_with_dj_tpu.ops.conv3d")
+tconv = importlib.import_module("jax_nbody_emulator_with_dj_tpu_torch.ops.conv3d")
 
 torch.set_num_threads(2)  # tier-1 runs several xdist workers
 

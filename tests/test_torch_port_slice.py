@@ -365,6 +365,18 @@ def test_port_sources_do_not_reference_jax():
         assert not pattern.search(f.read_text()), f
 
 
+@pytest.mark.parametrize("sub", ["models", "ops"])
+def test_subpackage_exports_cover_the_jax_package(sub):
+    """The JAX package's ``models`` and ``ops`` names, importable from the port's."""
+    import importlib
+
+    jmod = importlib.import_module(f"jax_nbody_emulator_with_dj_tpu.{sub}")
+    tmod = importlib.import_module(f"jax_nbody_emulator_with_dj_tpu_torch.{sub}")
+    assert set(jmod.__all__) <= set(tmod.__all__)
+    for name in tmod.__all__:
+        assert callable(getattr(tmod, name)), name
+
+
 def test_port_import_loads_no_jax():
     code = (
         "import sys, jax_nbody_emulator_with_dj_tpu_torch as t\n"
