@@ -1354,8 +1354,14 @@ def phase_sharded(card):
     must launch on the sharded path), the 512^3 headline vel box (per-phase and
     exchange ms, margin bytes per boundary, peak against ``memory_audit``, B2
     launches, the single-device box's time in the same process) and a 128^3
-    style vel box (one fold per call).  Returns the launches of each sharded run."""
+    style vel box (one fold per call).  The headline box is ``experiments/mp_box.py``'s
+    (its seeded weights and input blocks), so that ``phase_multiprocess`` holds the
+    two-process box against it.  Returns the launches of each sharded run, and the
+    headline box's outputs on the host by file name with its time, peak, launches
+    and per-phase ms."""
     from jax_nbody_emulator_with_dj_tpu_torch import HierarchicalProcessor
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments import mp_box
+    from jax_nbody_emulator_with_dj_tpu_torch.parallel import make_sharded_box
     from jax_nbody_emulator_with_dj_tpu_torch.parallel import ShardedHierarchicalProcessor
     from jax_nbody_emulator_with_dj_tpu_torch.parallel import sharded_hierarchical as sh
 
@@ -1411,12 +1417,21 @@ def phase_sharded(card):
         del emu, ref, proc, out
         torch.cuda.empty_cache()
 
-    # the 512^3 headline vel box: one device, then sharded, in this process
+    # the 512^3 headline vel box of mp_box: one device, then sharded, in this process
     n = SHARDED_HEADLINE_N
-    box = box_of(n)
-    emu = _emulator(True, 0)
+    size = (n,) * 3
+    host = np.empty((3,) + size, np.float32)
+
+    def block(idx):  # mp_box's block, also written into the whole box on the host
+        host[idx] = mp_box.box_block(mp_box.SEED, size, idx)
+        return host[idx]
+
+    sbox = make_sharded_box(mesh, size, block, dtype=torch.bfloat16)
+    box = torch.from_numpy(host).cuda()
+    del host
+    model, params = mp_box.build_model("vel", mp_box.SEED, 64, "cuda")
     cfg = _config(n, slab=32, tile=(128,) * 3, dtype=torch.bfloat16)  # the default geometry
-    one = HierarchicalProcessor(emu.model, emu.params, cfg, device="cuda")
+    one = HierarchicalProcessor(model, params, cfg, device="cuda")
     one.process_box(box, 0.5, 0.3, as_numpy=False)  # warm-up
     torch.cuda.synchronize()
     # peaks: above what was allocated before the call (the box; for the sharded call
@@ -1430,16 +1445,16 @@ def phase_sharded(card):
     single_peak = torch.cuda.max_memory_allocated() - base
     del one
     torch.cuda.empty_cache()
-    proc = ShardedHierarchicalProcessor(emu.model, emu.params, mesh, cfg)
+    proc = ShardedHierarchicalProcessor(model, params, mesh, cfg)
     t0 = time.perf_counter()
-    sharded(proc, box)  # warm-up
+    sharded(proc, sbox)  # warm-up
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    out = sharded(proc, box, profile=True)
+    out = sharded(proc, sbox, profile=True)
     wall = time.perf_counter() - t0
     label = f"sharded_{n}_vel"
     launches[label] = _launch_counts()
@@ -1456,7 +1471,13 @@ def phase_sharded(card):
                   slab=proc.config.slab, tile=list(proc.config.tile), tile1=proc.config.tile1)
     if launches[label]["B2"] <= 0:
         raise RuntimeError(f"{label}: B2 launched 0 times: {launches[label]}")
-    del emu, ref, proc, out, box
+    headline = {"seconds": wall, "peak_bytes": peak, "launches": launches[label],
+                "phase_ms": {k: v * 1e3 for k, v in proc.last_timings.items()},
+                "files": {f"{name}_{'_'.join(str(o) for o in field.origin(i))}":
+                          part.cpu().numpy()
+                          for name, field in zip(("dis", "vel"), out)
+                          for i, part in enumerate(field.parts)}}
+    del model, params, ref, proc, out, box, sbox
     torch.cuda.empty_cache()
 
     # a style vel box: one fold per call, shared by the eight shards
@@ -1486,7 +1507,126 @@ def phase_sharded(card):
         raise RuntimeError(f"{label}: {len(folds)} folds a call, launches {launches[label]}")
     del emu, ref, proc, out, box
     torch.cuda.empty_cache()
-    return launches
+    return launches, headline
+
+
+MP_N = 512  # the multi-process box: the headline vel box on two processes
+MP_POD_N = 256  # run_pod on two processes
+MP_TIMEOUT = 600  # seconds a two-process run may take before its processes are killed
+GATE_MP_POD_PK = 2e-4  # P(k) rows as run_pod prints them (%.4e); the card's deposit adds
+                       # with float atomics, in no fixed order
+
+
+def _pod_rows(text):
+    """The (k, P, modes) rows of run_pod's printed P(k)."""
+    rows = [ln.split() for ln in text.splitlines() if ln.strip().startswith("k=")]
+    return np.array([[float(r[0][2:]), float(r[2][2:]), float(r[3][1:])] for r in rows])
+
+
+def phase_multiprocess(card, one):
+    """Two processes share the card, each driving four of the eight shards of
+    a (2, 2, 2) mesh, the margins between them over a gloo group staged
+    through host memory (``experiments/mp_box.py``, ``parallel/collectives``):
+
+    1. the 512^3 headline vel box (premodulated disp+vel, bf16, ``mid_chan=64``,
+       seeded weights and box): each process's shards, written as files,
+       bit-identical to the same box on the one-process 8-shard mesh, ``one``
+       (``phase_sharded``'s headline box); the processes' summed B1 / B2
+       launches equal to its launches; each process's warm seconds, peak,
+       launches, margin bytes inside and across processes and per-phase ms,
+       beside the one-process call's (both timed with ``profile=True``);
+    2. ``cli/run_pod --size 256 --ic-seed 5 --validate --out-dir`` on the two
+       processes against the one-process ``run_pod``: the same files, bit for
+       bit, and the same printed P(k).
+
+    Two processes can share the card only if its compute mode lets them: the
+    phase reads it first and, under ``Exclusive_Process``, logs so, runs
+    nothing and returns the box's launches as None, which the kernels line
+    shows.  Returns the launches of the box on two processes."""
+    import contextlib
+    import io
+    import tempfile
+
+    from jax_nbody_emulator_with_dj_tpu_torch.cli import run_pod
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments import mp_box
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log("multiprocess_env", compute_mode=mode)
+    if "Exclusive_Process" in mode:
+        log("multiprocess", skipped="the card's compute mode admits one process")
+        return {f"multiprocess_{MP_N}_vel": None}
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+
+    def command(module, argv):
+        return lambda rank, coordinator: [
+            sys.executable, "-m", f"jax_nbody_emulator_with_dj_tpu_torch.{module}", *argv,
+            "--coordinator", coordinator, "--num-processes", "2", "--process-id", str(rank)]
+
+    with tempfile.TemporaryDirectory(prefix="mp_") as tmp:
+        tmp = Path(tmp)
+        # 1. the 512^3 vel box on two processes, against the one-process box
+        box_argv = ["--size", str(MP_N), "--mesh", *map(str, SHARDED_MESH), "--device", "cuda",
+                    "--kind", "vel", "--mid-chan", "64", "--dtype", "bf16", "--warmups", "1",
+                    "--out-dir", str(tmp / "box")]
+        t0 = time.perf_counter()
+        texts = mp_box.launch(command("experiments.mp_box", box_argv), 2, MP_TIMEOUT, cwd=ROOT)
+        run_s = time.perf_counter() - t0
+        records = [json.loads(out.strip().splitlines()[-1]) for out, _ in texts]
+        for rec in records:
+            log("multiprocess", case=f"box_{MP_N}_vel", process=rec["process_index"],
+                card=rec["card"], shards=rec["shards"], seconds=rec["seconds"],
+                peak_bytes=rec["peak_bytes"], launches=rec["launches"], wino=rec["wino"],
+                margin_bytes=rec["margin_bytes"], inside_bytes=rec["inside_bytes"],
+                cross_bytes_sent=rec["cross_bytes_sent"],
+                cross_bytes_received=rec["cross_bytes_received"], halo_bytes=rec["halo_bytes"],
+                phase_ms=rec["phase_ms"])
+        if not all(rec["wino"] for rec in records):
+            raise RuntimeError(f"multiprocess box ran without the kernels: {records}")
+        mp_launches = {k: sum(rec["launches"][k] for rec in records) for k in ("B1", "B2")}
+
+        one_launches = one["launches"]
+        written = sorted(f.stem for f in (tmp / "box").glob("*.npy"))
+        differ = sorted(set(written) ^ set(one["files"])) + [
+            name for name, part in one["files"].items() if name in written
+            and not np.array_equal(np.load(tmp / "box" / f"{name}.npy"), part)]
+        log("multiprocess", case=f"box_{MP_N}_vel_vs_one_process", card=card,
+            run_s=run_s, one_process_s=one["seconds"],
+            one_process_peak_above_input_bytes=one["peak_bytes"],
+            one_process_phase_ms=one["phase_ms"], launches=mp_launches,
+            one_process_launches=one_launches, files=len(written), differing_files=differ)
+        if differ or mp_launches != one_launches or mp_launches["B2"] <= 0:
+            raise RuntimeError(f"multiprocess box: files differing {differ}, launches "
+                               f"{mp_launches} against {one_launches}")
+
+        # 2. run_pod on two processes, then on one
+        pod_argv = ["--size", str(MP_POD_N), "--mesh", *map(str, SHARDED_MESH), "--devices",
+                    "cuda", "--ic-seed", "5", "--validate"]
+        t0 = time.perf_counter()
+        texts = mp_box.launch(command("cli.run_pod", [*pod_argv, "--out-dir",
+                                                      str(tmp / "pod_mp")]), 2, MP_TIMEOUT,
+                              cwd=ROOT)
+        pod_s = time.perf_counter() - t0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            one = run_pod.main([*pod_argv, "--out-dir", str(tmp / "pod_one")])
+        mp_rows, one_rows = _pod_rows(texts[0][0]), _pod_rows(printed.getvalue())
+        names = sorted(p.name for p in (tmp / "pod_one").glob("*.npy"))
+        differ = [n for n in names if not (tmp / "pod_mp" / n).exists()
+                  or not np.array_equal(np.load(tmp / "pod_mp" / n), np.load(tmp / "pod_one" / n))]
+        pk_ok = mp_rows.shape == one_rows.shape and len(one_rows) and np.allclose(
+            mp_rows, one_rows, rtol=GATE_MP_POD_PK, atol=0)
+        log("multiprocess", case=f"run_pod_{MP_POD_N}", run_s=pod_s,
+            one_process_seconds=one["seconds"], files=len(names), differing_files=differ,
+            pk_rows=mp_rows.tolist(), one_process_pk_rows=one_rows.tolist(),
+            pk_gate=GATE_MP_POD_PK, first_line=texts[0][0].splitlines()[0])
+        if differ or len(names) != 16 or not pk_ok:
+            raise RuntimeError(f"run_pod on two processes: files differing {differ} of "
+                               f"{len(names)}, P(k) {mp_rows} against {one_rows}")
+    torch.cuda.empty_cache()
+    log("multiprocess", case="phase", seconds=time.perf_counter() - phase_t0)
+    return {f"multiprocess_{MP_N}_vel": mp_launches}
 
 
 def phase_sharded_science(card):
@@ -1885,7 +2025,10 @@ def main():
     phase_planner()
     phase_science()
     path_launches.update(phase_pipeline(card))
-    path_launches.update(phase_sharded(card))
+    sharded_launches, headline = phase_sharded(card)
+    path_launches.update(sharded_launches)
+    path_launches.update(phase_multiprocess(card, headline))
+    del headline
     phase_sharded_science(card)
     phase_dryrun()
     path_launches.update(phase_cli(card))
@@ -1911,10 +2054,13 @@ def main():
     kernels[1]["style_launches"] = launches_style[True]["B2"]
     # launches per box of the y0-cached, unpacked, chunked and learned-tangent paths; per
     # pipeline run (two emulator calls) of the 512^3 vel and 256^3 disp pipelines; per box
-    # of the sharded runs on eight virtual shards (2, 2, 2); per run of the cli drivers
+    # of the sharded runs on eight virtual shards (2, 2, 2), on one process and on two
+    # sharing the card (the two processes' launches summed; None where the card's compute
+    # mode admits one process); per run of the cli drivers
     # run_emulator (256^3 vel) and run_batch (two 128^3 vel boxes, style and premodulated)
     for entry, key in ((kernels[0], "B1"), (kernels[1], "B2")):
-        entry["path_launches"] = {path: lc[key] for path, lc in path_launches.items()}
+        entry["path_launches"] = {path: None if lc is None else lc[key]
+                                  for path, lc in path_launches.items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

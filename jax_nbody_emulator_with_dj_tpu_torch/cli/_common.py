@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..hierarchical import resolve_device
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import make_mesh, process_count
 
 PRECISION = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 OUTPUT_DTYPE = {"f16": torch.float16, "f32": torch.float32}
@@ -32,10 +32,10 @@ def add_device_args(p, devices: bool = False) -> None:
                         "one; 'cpu' runs on the CPU)")
     if devices:
         p.add_argument("--devices", type=str, nargs="+", default=None,
-                       help="devices of the mesh's shards: one name is repeated over every "
-                            "shard (virtual shards, e.g. 'cuda'), several fill the mesh in "
-                            "order and must be at least as many as its shards (default: the "
-                            "visible CUDA cards; with --device cpu, the CPU)")
+                       help="this process's devices for its shards of the mesh: one name is "
+                            "repeated over every shard (virtual shards, e.g. 'cuda'), several "
+                            "fill the shards in order and must be at least as many (default: "
+                            "the visible CUDA cards; with --device cpu, the CPU)")
 
 
 def add_params_args(p) -> None:
@@ -101,9 +101,9 @@ def plan_config(n: int, device: torch.device, **kw):
 
 
 def mesh_devices(names, device: torch.device, n_shards: int):
-    """The device list of a mesh of ``n_shards``: ``names`` (one name repeated
-    over every shard), else the visible CUDA cards (None), or on the CPU the
-    CPU repeated."""
+    """The device list of this process's ``n_shards`` shards of a mesh:
+    ``names`` (one name repeated over every shard), else the visible CUDA
+    cards (None), or on the CPU the CPU repeated."""
     if names is None:
         return None if device.type == "cuda" else [device] * n_shards
     devs = [torch.device(d) for d in names]
@@ -111,10 +111,11 @@ def mesh_devices(names, device: torch.device, n_shards: int):
 
 
 def cli_mesh(shape, names, device: torch.device):
-    """A spatial mesh of ``shape`` over ``mesh_devices``; raises when the mesh has
-    more shards than devices were given."""
+    """A spatial mesh of ``shape`` over ``mesh_devices`` for this process's
+    shards; raises when it has more shards than devices were given."""
     shape = tuple(int(s) for s in shape)
-    return make_mesh(shape, devices=mesh_devices(names, device, int(np.prod(shape))))
+    per = int(np.prod(shape)) // process_count()
+    return make_mesh(shape, devices=mesh_devices(names, device, per))
 
 
 def to_jsonable(x):

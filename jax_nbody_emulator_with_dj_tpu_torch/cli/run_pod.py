@@ -1,24 +1,26 @@
 """Sharded emulation driver: one box decomposed over a mesh of devices.
 
-Counterpart of the JAX package's ``examples/run_pod.py``.  The port drives
-every shard of the mesh from one process: ``--mesh`` over ``--devices``
-(default: the visible CUDA cards), where one device name repeated is a mesh
-of virtual shards (``--mesh 2 2 2 --devices cuda`` runs eight shards on one
-card).  A mesh with more shards than the devices given raises.  The input is
+Counterpart of the JAX package's ``examples/run_pod.py``: ``--mesh`` over
+``--devices`` (default: the visible CUDA cards), where one device name
+repeated is a mesh of virtual shards (``--mesh 2 2 2 --devices cuda`` runs
+eight shards on one card).  A multi-process run starts the same command in
+every process with ``--coordinator host:port --num-processes P --process-id
+r`` (``parallel.initialize``: a gloo group); each process then drives its own
+``1/P`` of the shards on its ``--devices``, and process 0 prints.  A mesh
+with more shards than a process has devices for raises.  The input is
 made on the mesh (``--ic-seed``: EH98 P(k) -> sharded Gaussian random field
 -> sharded Zel'dovich displacement, never gathered), read shard by shard
 from a memory-mapped ``--input``, or drawn per shard (the benchmark mode).
 ``ShardedBoxProcessor`` runs the box twice (a warm-up, then a timed call);
 ``--validate`` deposits the emulated displacement to a density on the mesh
-and prints its P(k) (pencil FFT); ``--out-dir`` writes one file per shard
-and output, ``dis_<i0>_<j0>_<k0>.npy`` / ``vel_...`` (what ``halos`` reads).
+and prints its P(k) (pencil FFT; every process gets the same spectrum);
+``--out-dir`` writes one file per shard and output, ``dis_<i0>_<j0>_<k0>.npy``
+/ ``vel_...`` (what ``halos`` reads), each process its own shards.
 
 Differences from the JAX example: ``--device`` (default the CUDA card;
 raises without one; ``--device cpu`` runs on the CPU, the mesh then on the
-CPU repeated) and ``--devices``; multi-process runs are not ported:
-``--coordinator``, ``--num-processes`` and ``--process-id`` reach
-``parallel.initialize``, which raises ``NotImplementedError`` (ROADMAP
-A10b); the GRF comes from a ``torch.Generator`` seeded with ``--ic-seed``.
+CPU repeated) and ``--devices`` (this process's); the GRF comes from a
+``torch.Generator`` seeded with ``--ic-seed``.
 
     python -m jax_nbody_emulator_with_dj_tpu_torch.cli.run_pod --size 128 \\
         --mesh 2 2 2 --devices cuda --ic-seed 5 --validate
@@ -64,7 +66,7 @@ def parse_args(argv=None):
                    help="tiles per shard (default: tile extents near 128)")
     p.add_argument("--halo", type=int, default=48)
     p.add_argument("--coordinator", type=str, default=None,
-                   help="host:port of a multi-process run (not ported: raises)")
+                   help="host:port of a multi-process run (process 0 serves it)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--out-dir", type=str, default=None,
@@ -96,7 +98,7 @@ def _params(args):
 
 def _sync(fields):
     for f in fields:
-        for p in f.parts:
+        for p in f.local_parts:
             if p.device.type == "cuda":
                 torch.cuda.synchronize(p.device)
 
@@ -113,22 +115,28 @@ def main(argv: list[str] | None = None) -> dict:
         initialize,
         make_mesh,
         make_sharded_box,
+        process_count,
+        process_index,
     )
+    from ..parallel.collectives import each
     from ..parallel.mesh import _factor3
 
     initialize(args.coordinator, args.num_processes, args.process_id)
+    world, rank = process_count(), process_index()
     if args.mesh:
         mesh_shape = tuple(args.mesh)
-        devices = mesh_devices(args.devices, device, int(np.prod(mesh_shape)))
+        devices = mesh_devices(args.devices, device, int(np.prod(mesh_shape)) // world)
     else:
         devices = mesh_devices(args.devices, device, 1)
         if devices is None:  # the visible cards
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        mesh_shape = _factor3(len(devices))
+        mesh_shape = _factor3(len(devices) * world)
     mesh = make_mesh(mesh_shape, devices=devices)
     n_dev = len(mesh.distinct_devices())
-    print(f"pod: 1 process, {mesh.size} shards on {n_dev} device(s), mesh {mesh_shape}",
-          flush=True)
+    if rank == 0:
+        print(f"pod: {world} process{'es' if world > 1 else ''}, {mesh.size} shards on "
+              f"{n_dev} device(s){' a process' if world > 1 else ''}, mesh {mesh_shape}",
+              flush=True)
 
     size = (args.size,) * 3
     shard = tuple(s // m for s, m in zip(size, mesh_shape))
@@ -147,10 +155,10 @@ def main(argv: list[str] | None = None) -> dict:
 
         k_t = np.logspace(-4, 2, 512)
         p_t = eisenstein_hu_pk(k_t, Om=args.Om, Ob=0.049, h=0.6711, ns=0.9624, sigma8=0.834)
-        gen = torch.Generator(device=mesh.devices.flat[0]).manual_seed(args.ic_seed)
+        gen = torch.Generator(device=mesh.distinct_devices()[0]).manual_seed(args.ic_seed)
         delta = gaussian_random_field_sharded(gen, args.size, mesh, args.boxsize, k_t, p_t)
         psi = zeldovich_displacement_sharded(delta, mesh, args.boxsize)
-        box = psi.like([p.to(cfg.dtype) for p in psi.parts])
+        box = psi.like(each(lambda p: p.to(cfg.dtype), psi.parts))
         del delta, psi
     elif args.input:
         psi = np.lib.format.open_memmap(args.input, mode="r")
@@ -174,10 +182,12 @@ def main(argv: list[str] | None = None) -> dict:
     _sync(outs)
     dt = time.perf_counter() - t0
     vps = float(np.prod(size)) / dt
-    print(f"{args.size}^3 {'disp+vel' if args.vel else 'disp'}: {dt:.2f} s  "
-          f"({vps / 1e6:.1f} M voxel/s, {vps / 1e6 / n_dev:.1f} M voxel/s/device)", flush=True)
+    if rank == 0:
+        print(f"{args.size}^3 {'disp+vel' if args.vel else 'disp'}: {dt:.2f} s  "
+              f"({vps / 1e6:.1f} M voxel/s, {vps / 1e6 / n_dev / world:.1f} M voxel/s/device)",
+              flush=True)
     result = {"seconds": dt, "mesh": mesh_shape, "shards": mesh.size, "devices": n_dev,
-              "outputs": outs}
+              "process_index": rank, "process_count": world, "outputs": outs}
 
     if args.validate:
         from ..science import displacement_to_density_sharded, power_spectrum_sharded
@@ -188,9 +198,10 @@ def main(argv: list[str] | None = None) -> dict:
         k, pk, nm = (to_numpy(t) for t in power_spectrum_sharded(delta_emu, mesh, args.boxsize))
         sel = nm > 0
         rows = np.linspace(0, sel.sum() - 1, 8).astype(int)
-        print("emulated-density P(k):", flush=True)
-        for i in np.flatnonzero(sel)[rows]:
-            print(f"  k={k[i]:.4f} h/Mpc  P={pk[i]:.4e}  ({int(nm[i])} modes)", flush=True)
+        if rank == 0:
+            print("emulated-density P(k):", flush=True)
+            for i in np.flatnonzero(sel)[rows]:
+                print(f"  k={k[i]:.4f} h/Mpc  P={pk[i]:.4e}  ({int(nm[i])} modes)", flush=True)
         result["pk"] = {"k": k, "pk": pk, "modes": nm}
 
     if args.out_dir:
@@ -198,11 +209,12 @@ def main(argv: list[str] | None = None) -> dict:
         outdir.mkdir(parents=True, exist_ok=True)
         files = []
         for name, field in zip(("dis", "vel"), outs):
-            for i, part in enumerate(field.parts):
+            for i in field.local_indices():
                 tag = "_".join(str(o) for o in field.origin(i))
-                np.save(outdir / f"{name}_{tag}.npy", part.cpu().numpy())
+                np.save(outdir / f"{name}_{tag}.npy", field.parts[i].cpu().numpy())
                 files.append(f"{name}_{tag}.npy")
-        print(f"per-shard outputs in {outdir}", flush=True)
+        if rank == 0:
+            print(f"per-shard outputs in {outdir}", flush=True)
         result["files"] = files
     return result
 

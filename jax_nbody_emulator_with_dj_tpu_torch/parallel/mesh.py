@@ -3,21 +3,49 @@
 Counterpart of ``jax_nbody_emulator_with_dj_tpu/parallel/mesh.py``.  The
 emulation domain is a 3D periodic volume whose three spatial axes are sharded
 over a 3D logical mesh ('x', 'y', 'z').  The port's mesh is a numpy object
-array of ``torch.device`` in the mesh's shape; one process drives every shard.
+array of ``torch.device`` in the mesh's shape.
 
 A device may repeat in the array: eight shards on ``[torch.device("cuda")] * 8``
 are the port's counterpart of XLA's virtual devices, so a (2, 2, 2)
 decomposition (its exchanges included) runs on one card, and the CPU tests run
 the same code on ``[torch.device("cpu")] * 8``.  A node with several cards runs
 it unchanged on ``cuda:0 .. cuda:n-1``.
+
+In a multi-process run (``distributed.initialize``: a ``torch.distributed``
+group of ``process_count()`` processes) each process owns a contiguous
+row-major block of ``n / process_count()`` shards (:func:`shard_owner`), the
+counterpart of a JAX device's ``process_index``.  The device array holds this
+process's devices for its own shards and ``torch.device("meta")`` for every
+shard another process owns, so a loop that forgets to skip a remote shard
+fails at once instead of computing on the wrong device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SPATIAL_AXES = ("x", "y", "z")
+REMOTE = torch.device("meta")  # the device entry of a shard another process owns
+
+
+def process_index() -> int:
+    """This process's rank in the run (0 without a process group)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes in the run (1 without a process group)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def shard_owner(n_shards: int, i: int, world: int | None = None) -> int:
+    """The process that owns shard ``i`` of ``n_shards``: contiguous row-major
+    blocks of ``n_shards / world`` shards (``world`` defaults to
+    :func:`process_count`)."""
+    world = process_count() if world is None else world
+    return i // (n_shards // world)
 
 
 class Mesh:
@@ -26,7 +54,9 @@ class Mesh:
     ``devices`` is the object array of ``torch.device`` (``mesh.devices.flat``
     enumerates the shards in row-major order, the order of every list of
     per-shard tensors in this package); ``shape`` maps each axis name to its
-    size, as a JAX mesh's does.
+    size, as a JAX mesh's does.  ``process_ids`` (same shape) is each
+    shard's owning process (:func:`shard_owner`); a shard another process
+    owns has ``REMOTE`` as its device.
     """
 
     def __init__(self, devices, axis_names=SPATIAL_AXES):
@@ -38,6 +68,16 @@ class Mesh:
                              f"got {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        world = process_count()
+        if devices.size % world:
+            raise ValueError(f"{devices.size} shards do not split over {world} processes")
+        self.process_ids = np.array([shard_owner(devices.size, i, world)
+                                     for i in range(devices.size)]).reshape(devices.shape)
+        rank = process_index()
+        for i, (d, p) in enumerate(zip(devices.flat, self.process_ids.flat)):
+            if (d == REMOTE) != (p != rank):
+                raise ValueError(f"shard {i} (process {p}) on {d} in process {rank}: a "
+                                 f"process's own shards need devices, the others' {REMOTE}")
 
     @property
     def shape(self) -> dict:
@@ -51,11 +91,16 @@ class Mesh:
         """Sizes of the spatial axes ``SPATIAL_AXES``, in that order."""
         return tuple(self.shape[a] for a in SPATIAL_AXES)
 
+    def local_indices(self) -> list:
+        """The linear indices of the shards this process owns (every shard in
+        one process)."""
+        return [i for i, d in enumerate(self.devices.flat) if d != REMOTE]
+
     def distinct_devices(self) -> list:
-        """Each device of the mesh once, in order of first appearance."""
+        """Each device of this process's shards once, in order of first appearance."""
         out = []
         for d in self.devices.flat:
-            if d not in out:
+            if d != REMOTE and d not in out:
                 out.append(d)
         return out
 
@@ -95,17 +140,26 @@ def visible_devices() -> list:
 
 
 def make_mesh(shape=(1, 1, 1), axis_names=SPATIAL_AXES, devices=None) -> Mesh:
-    """A 3D spatial mesh over ``devices`` (default: the visible CUDA cards).
+    """A 3D spatial mesh over ``devices``, this process's devices (default:
+    its visible CUDA cards).
 
-    Raises ``ValueError`` when the mesh needs more devices than given.  A list
-    that repeats a device places several shards on it (virtual shards)."""
+    The process owns ``n / process_count()`` of the mesh's ``n`` shards
+    (:func:`shard_owner`) and places them on the first as many ``devices``;
+    the other shards get ``REMOTE``.  Raises ``ValueError`` when the shards do
+    not split evenly over the processes or the process needs more devices
+    than given.  A list that repeats a device places several shards on it
+    (virtual shards)."""
     if devices is None:
         devices = visible_devices()
     n = int(np.prod(shape))
-    if n > len(devices):
-        raise ValueError(f"mesh shape {tuple(shape)} needs {n} devices, have {len(devices)}")
+    world, rank = process_count(), process_index()
+    per = n // world  # Mesh raises where n does not split over the processes
+    if per > len(devices):
+        need = f"{per} devices a process" if world > 1 else f"{n} devices"
+        raise ValueError(f"mesh shape {tuple(shape)} needs {need}, have {len(devices)}")
     arr = np.empty(n, dtype=object)
-    arr[:] = devices[:n]
+    arr[:] = [REMOTE] * n
+    arr[rank * per:(rank + 1) * per] = list(devices[:per])
     return Mesh(arr.reshape(tuple(shape)), axis_names)
 
 

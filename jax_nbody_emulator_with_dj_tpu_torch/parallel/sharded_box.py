@@ -9,7 +9,10 @@ the periodic volume lives sharded over a 3D mesh of devices, and one call
        forward, as ``SubboxProcessor`` does, bounding activation memory;
     3. writes each tile's output into the shard's block of the result.
 
-The shards run one after another in the calling process; nothing is gathered.
+The shards of the calling process run one after another; nothing is
+gathered.  In a multi-process run (``distributed.initialize``) each process
+runs its own shards, and the halo exchange carries the faces between
+processes (``collectives``).
 No kernel of the port runs here (the unpacked forward is ``F.conv3d``), as
 in ``SubboxProcessor``.
 """
@@ -25,7 +28,7 @@ from ..cosmology import growth_factor, vel_norm
 from ..models.cores import NBodyEmulatorCore, NBodyEmulatorVelCore, StyleNBodyEmulatorVelCore
 from ..models.unet import valid_input_size
 from ..utils.params import tree_to
-from .collectives import ShardedField, as_sharded
+from .collectives import ShardedField, as_sharded, each
 from .halo import halo_exchange
 from .mesh import Mesh
 
@@ -83,7 +86,7 @@ class ShardedBoxProcessor:
                 raise ValueError(f"tile input size {s // t + 2 * config.halo} invalid for the "
                                  f"model; adjust tiles_per_shard")
         self.tile_size = tuple(s // t for s, t in zip(self.shard_size, config.tiles_per_shard))
-        # one copy of the weights per distinct device, shared by its shards
+        # one copy of the weights per distinct device of this process, shared by its shards
         self.params = {d: tree_to(params, d) for d in mesh.distinct_devices()}
 
     def _apply(self, x, Om, Dz, vel_fac):
@@ -124,6 +127,9 @@ class ShardedBoxProcessor:
                                axis=-1).reshape(-1, 3) * np.array(self.tile_size)
             extent = tuple(t + 2 * cfg.halo for t in self.tile_size)
             for local in padded:
+                if local is None:  # another process's shard
+                    outs.append(None)
+                    continue
                 dev = local.device
                 scal = [torch.tensor([v], dtype=torch.float32, device=dev) for v in (Om, dz, vf)]
                 res = tuple(torch.zeros((cfg.in_chan,) + self.shard_size, dtype=cfg.output_dtype,
@@ -137,8 +143,9 @@ class ShardedBoxProcessor:
                 outs.append(res)
             del padded
         shape = (cfg.in_chan,) + tuple(cfg.size)
-        result = tuple(ShardedField(self.mesh, shape, (1, 2, 3), [o[b] for o in outs])
-                       for b in range(len(outs[0])))
+        nout = 2 if self.compute_vel else 1
+        result = tuple(ShardedField(self.mesh, shape, (1, 2, 3), each(lambda o: o[b], outs))
+                       for b in range(nout))
         if as_numpy:
             result = tuple(r.numpy() for r in result)
         return result if self.compute_vel else result[0]

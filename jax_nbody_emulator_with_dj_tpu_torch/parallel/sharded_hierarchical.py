@@ -19,9 +19,12 @@ size 1 degenerates every exchange to the single-device ghost fill, and the
 phases are shared code, so the result equals the single-device runtime up to
 float reordering (``tests/test_torch_port_parallel.py``).
 
-A style model is folded once per call at (z, Om), on the first device, and
-copied once to each other distinct device; the shards of one device share
-its weights.
+In a multi-process run (``distributed.initialize``) each process runs the
+phases of its own shards only, and the margins that cross processes go over
+the gloo group (``collectives``); the result is the one-process mesh's, bit
+for bit.  A style model is folded once per call at (z, Om) in each process,
+on its first device, and copied once to each other distinct device of the
+process; the shards of one device share its weights.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 
 from ..cosmology import growth_factor, vel_norm
 from ..hierarchical import HierarchicalConfig, HierarchicalProcessor
-from .collectives import ShardedField, as_sharded, ppermute_shift
+from . import collectives
+from .collectives import ShardedField, as_sharded, each, ppermute_shift
 from .halo import halo_exchange
 from .mesh import Mesh
 
@@ -43,7 +47,8 @@ from .mesh import Mesh
 def fill_margins_exchange(mesh: Mesh, shard_bufs, margins) -> int:
     """Fill the margins of every shard's padded buffer from its mesh neighbours.
 
-    ``shard_bufs`` are (1, D, H, W, C) buffers in row-major shard order with
+    ``shard_bufs`` are (1, D, H, W, C) buffers in row-major shard order
+    (``None`` for a shard another process owns) with
     ``margins`` (in the buffer's own units: W in packed cells when packed)
     baked into dims 1..3; their interiors are written, their margins are
     filled in place.  Axis by axis, like the single-device ghost fill, so the
@@ -53,20 +58,21 @@ def fill_margins_exchange(mesh: Mesh, shard_bufs, margins) -> int:
     extent wraps the torus more than once; shift 0 is the shard's own
     interior).  Every face of an axis is taken before any margin of that axis
     is written (faces lie in the interiors, which no write touches).
-    Returns the bytes written into the margins.
+    Returns the bytes written into this process's margins.
     """
     mesh_shape = mesh.spatial_shape()
     moved = 0
+    first = next(b for b in shard_bufs if b is not None)
     for axis, (dim, m) in enumerate(zip((1, 2, 3), margins)):
         if m == 0:
             continue
-        n = shard_bufs[0].shape[dim] - 2 * m
+        n = first.shape[dim] - 2 * m
         nm = mesh_shape[axis]
         writes = []
         for k in range(1, -(-m // n) + 1):
             take = min(n, m - (k - 1) * n)
-            lo = [b.narrow(dim, m + n - take, take) for b in shard_bufs]
-            hi = [b.narrow(dim, m, take) for b in shard_bufs]
+            lo = each(lambda b: b.narrow(dim, m + n - take, take), shard_bufs)
+            hi = each(lambda b: b.narrow(dim, m, take), shard_bufs)
             shift = k % nm
             if shift:
                 lo = ppermute_shift(lo, mesh_shape, axis, shift)  # from the k-left neighbour
@@ -74,6 +80,8 @@ def fill_margins_exchange(mesh: Mesh, shard_bufs, margins) -> int:
             writes.append((m - (k - 1) * n - take, lo, m + n + (k - 1) * n, hi))
         for lo_at, lo, hi_at, hi in writes:
             for buf, a, b in zip(shard_bufs, lo, hi):
+                if buf is None:
+                    continue
                 buf.narrow(dim, lo_at, a.shape[dim]).copy_(a)
                 buf.narrow(dim, hi_at, b.shape[dim]).copy_(b)
                 moved += a.nbytes + b.nbytes
@@ -151,11 +159,11 @@ class ShardedHierarchicalProcessor:
         except ValueError:
             local_cfg = HierarchicalConfig(**kw)  # auto-pick a local tile1
         self.config = local_cfg
-        # one processor (and one copy of the weights) per distinct device
+        # one processor (and one copy of the weights) per distinct device of this process
         self.locals = {d: _LocalHierarchical(model, params, local_cfg, device=d)
                        for d in mesh.distinct_devices()}
         self.local = next(iter(self.locals.values()))
-        self.shard_local = [self.locals[d] for d in mesh.devices.flat]
+        self.shard_local = [self.locals.get(d) for d in mesh.devices.flat]
         self.compute_vel = self.local.compute_vel
         self.styled = self.local.styled
         self.last_timings = {}
@@ -169,16 +177,18 @@ class ShardedHierarchicalProcessor:
                 torch.cuda.synchronize(d)
 
     def _fold(self, z, Om):
-        """Fold a style model once, on the first device; copy it to the others."""
+        """Fold a style model once, on this process's first device; copy it to
+        its others."""
         exec0 = self.local._fold_exec(z, Om)
         for loc in self.locals.values():
             loc._exec = exec0 if loc is self.local else _exec_to(exec0, loc.device)
 
     def _exchange(self, bufs, margins) -> int:
-        """Fill the margins of every shard's level buffers (each of the one or
-        two buffers of a level in turn)."""
-        return sum(fill_margins_exchange(self.mesh, [b[j] for b in bufs], margins)
-                   for j in range(len(bufs[0])))
+        """Fill the margins of this process's shards' level buffers (each of
+        the one or two buffers of a level in turn)."""
+        nbuf = len(next(b for b in bufs if b is not None))
+        return sum(fill_margins_exchange(self.mesh, each(lambda b: b[j], bufs), margins)
+                   for j in range(nbuf))
 
     # ---- ahead-of-time inspection -----------------------------------------
 
@@ -211,8 +221,8 @@ class ShardedHierarchicalProcessor:
 
     def memory_audit(self, z: float = 0.0, Om: float = 0.3175) -> dict:
         """The calibrated device-memory estimate of one ``process_box`` call,
-        per device, in bytes (the port's counterpart of the JAX package's
-        ``lower_phases``, which is XLA's).
+        per device of this process, in bytes (the port's counterpart of the
+        JAX package's ``lower_phases``, which is XLA's).
 
         Each phase's row of the local config's ``memory_audit`` (``geometry.
         phase_bytes``: ``args``, ``out``, ``temps``, ``extra_live``) is taken
@@ -226,7 +236,8 @@ class ShardedHierarchicalProcessor:
         local = self.local.memory_audit(z, Om)["phases"]
         w = self.local.exec_weight_bytes()
         counts = {}
-        for d in self.mesh.devices.flat:
+        for i in self.mesh.local_indices():
+            d = self.mesh.devices.flat[i]
             counts[d] = counts.get(d, 0) + 1
         devices = {}
         for d, k in counts.items():
@@ -263,13 +274,18 @@ class ShardedHierarchicalProcessor:
             box: (C, D, H, W) global input: numpy, a torch tensor (sharded
                 here: each block uploaded, then cast) or a ``ShardedField``.
             z, Om: output redshift and matter density.
-            as_numpy: gather the result to host numpy (validation only; by
-                default each output is a ``ShardedField`` on the mesh).
-            profile: synchronise the mesh's devices after each step and keep
-                the wall times in ``last_timings`` (seconds: ``fold``,
+            as_numpy: gather the result to host numpy (validation only, and
+                one process only: ``ShardedField.gather`` raises where other
+                processes hold shards; by default each output is a
+                ``ShardedField`` on the mesh).
+            profile: synchronise this process's devices after each step and
+                keep the wall times in ``last_timings`` (seconds: ``fold``,
                 ``scale``, each phase and, apart, each ``exchange_*``) and
-                the bytes written into the margins at each phase boundary,
-                over all shards, in ``last_halo_bytes``.
+                the bytes written into the margins of this process's shards
+                at each phase boundary in ``last_halo_bytes``; with other
+                processes, also the bytes this process sent to them
+                (``sent_<boundary>``) and the seconds of the exchanges'
+                cross-process messages, staging included (``cross_s``).
 
         Returns the displacement, or ``(disp, vel)`` for a velocity model.
         """
@@ -288,8 +304,21 @@ class ShardedHierarchicalProcessor:
                 timings[name] = time.perf_counter() - t0
                 t0 = time.perf_counter()
 
-        locs = self.shard_local
-        shards = range(len(locs))
+        locs = self.shard_local  # None for a shard another process owns
+        shards = self.mesh.local_indices()
+        remote = len(shards) < len(locs)
+        cross0 = collectives.traffic.seconds
+
+        def exchange(name, fill):
+            sent = collectives.traffic.bytes_sent
+            moved[name] = fill()
+            if remote:
+                moved[f"sent_{name}"] = collectives.traffic.bytes_sent - sent
+            stamp(f"exchange_{name}")
+
+        def bufs(margin_of, level=1):
+            return each(lambda loc: loc._new_bufs(margin_of(loc), level=level), locs)
+
         with torch.no_grad():
             if self.styled:
                 self._fold(z, Om)  # this call's weights, released below
@@ -301,60 +330,64 @@ class ShardedHierarchicalProcessor:
                               dtype=torch.float32)
             head = (vf * 6.0, vf * 6.0 / dz32)
             scale = dz32.to(cfg.dtype) / torch.tensor(6.0, dtype=cfg.dtype)
-            scaled = [(p * scale)[None] for p in field.parts]
+            scaled = each(lambda p: (p * scale)[None], field.parts)
             del field
             stamp("scale")
             # the 8-voxel input halo (phase 1 needs 4, phase 3 needs 8), in place of _wrap_pad
-            boxp = halo_exchange(scaled, mesh_shape, 8, spatial_dims=(2, 3, 4))
-            moved["input"] = sum(b.nbytes - s.nbytes for b, s in zip(boxp, scaled))
-            del scaled
-            stamp("exchange_input")
+            boxp = None
 
-            h1 = [locs[i]._new_bufs(locs[i]._h1_margin()) for i in shards]
+            def pad_input():
+                nonlocal boxp
+                boxp = halo_exchange(scaled, mesh_shape, 8, spatial_dims=(2, 3, 4))
+                return sum(boxp[i].nbytes - scaled[i].nbytes for i in shards)
+
+            exchange("input", pad_input)
+            del scaled
+
+            h1 = bufs(lambda loc: loc._h1_margin())
             for i in shards:
                 locs[i]._phase1_all(boxp[i], h1[i])
             stamp("phase1")
-            moved["h1"] = self._exchange(h1, self.local._h1_margin())
-            stamp("exchange_h1")
+            exchange("h1", lambda: self._exchange(h1, self.local._h1_margin()))
 
-            y1 = [locs[i]._new_bufs(locs[i]._y1_margin()) for i in shards]
+            y1 = bufs(lambda loc: loc._y1_margin())
             for i in shards:
                 locs[i]._phase2a_all(h1[i], y1[i])
                 h1[i] = None  # its margins were filled: no other shard reads it
             stamp("phase2a")
-            moved["y1"] = self._exchange(y1, self.local._y1_margin())
-            stamp("exchange_y1")
+            exchange("y1", lambda: self._exchange(y1, self.local._y1_margin()))
 
-            y2 = [locs[i]._new_bufs(locs[i]._y2_margin(), level=2) for i in shards]
+            y2 = bufs(lambda loc: loc._y2_margin(), level=2)
             for i in shards:
                 locs[i]._phase2b_all(y1[i], y2[i])
             stamp("phase2b")
-            moved["y2"] = self._exchange(y2, self.local._y2_margin())
-            stamp("exchange_y2")
+            exchange("y2", lambda: self._exchange(y2, self.local._y2_margin()))
 
-            r1 = [locs[i]._new_bufs(locs[i]._r1_margin()) for i in shards]
+            r1 = bufs(lambda loc: loc._r1_margin())
             for i in shards:
                 locs[i]._phase2c_all(y1[i], y2[i], r1[i])
                 y1[i] = y2[i] = None
             stamp("phase2c")
-            moved["r1"] = self._exchange(r1, self.local._r1_margin())
-            stamp("exchange_r1")
+            exchange("r1", lambda: self._exchange(r1, self.local._r1_margin()))
 
-            outs = []
+            outs = [None] * len(locs)
             for i in shards:
                 o = tuple(torch.zeros((1, cfg.in_chan) + cfg.size, dtype=cfg.output_dtype,
                                       device=locs[i].device) for _ in r1[i])
-                outs.append(locs[i]._phase3_all(boxp[i], r1[i], o, head))
+                outs[i] = locs[i]._phase3_all(boxp[i], r1[i], o, head)
                 boxp[i] = r1[i] = None
             stamp("phase3")
             if self.styled:
                 for loc in self.locals.values():
                     loc._exec = None
-        result = tuple(ShardedField(self.mesh, expect, (1, 2, 3), [o[b][0] for o in outs])
-                       for b in range(len(outs[0])))
+        result = tuple(ShardedField(self.mesh, expect, (1, 2, 3),
+                                    each(lambda o: o[b][0], outs))
+                       for b in range(len(outs[shards[0]])))
         if as_numpy:
             result = tuple(r.numpy() for r in result)
             stamp("to_host")
+        if profile and remote:
+            timings["exchange_cross"] = collectives.traffic.seconds - cross0
         if profile:
             self.last_timings = timings
             self.last_halo_bytes = moved

@@ -20,6 +20,12 @@ slab to the neighbour that owns those cells and adds it into that
 neighbour's interior (one shift pair per sharded axis; taking the axes in
 turn over the still-padded remaining axes routes corner mass through two
 hops).
+
+In a multi-process run (``parallel.distributed.initialize``) each process
+draws, transforms and deposits its own shards only; the pencil FFT's
+all-to-alls, the halo reduce and the sums cross processes through
+``parallel.collectives``, and a check that may raise reads a value every
+process shares (``pmax``), so every process raises alike.
 """
 
 from __future__ import annotations
@@ -27,22 +33,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import ShardedField, as_sharded, ppermute_shift
-from ..parallel.mesh import shard_coords
+from ..parallel.collectives import ShardedField, as_sharded, each, pmax, ppermute_shift
+from ..parallel.mesh import REMOTE, shard_coords
 from .grf import _interp_pk
 from .mas import _base_and_frac, _kernel_weights, _recip
 from .powerspec_sharded import _check_geometry, _fft3_local, _ifft3_local, _local_kmag, _local_kvec
 
 
 def shard_generators(generator: torch.Generator, mesh) -> list:
-    """One ``torch.Generator`` per shard, on the shard's device, seeded from
-    ``generator.initial_seed()`` and the shard's row-major linear index
-    (``parallel.mesh.shard_linear_index``) through ``numpy.random.SeedSequence``:
-    the port's counterpart of ``fold_in(key, shard_linear_index)``.  The
-    streams differ from shard to shard and from the single-device draw."""
+    """One ``torch.Generator`` per shard of this process, on the shard's
+    device, seeded from ``generator.initial_seed()`` and the shard's row-major
+    linear index (``parallel.mesh.shard_linear_index``) through
+    ``numpy.random.SeedSequence``: the port's counterpart of ``fold_in(key,
+    shard_linear_index)``.  The streams differ from shard to shard and from
+    the single-device draw, and do not depend on which process draws them
+    (``None`` for another process's shard)."""
     seed = generator.initial_seed()
     out = []
     for i, dev in enumerate(mesh.devices.flat):
+        if dev == REMOTE:
+            out.append(None)
+            continue
         state = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
         out.append(torch.Generator(device=dev).manual_seed(
             (int(state[0]) << 32 | int(state[1])) >> 1))
@@ -51,8 +62,8 @@ def shard_generators(generator: torch.Generator, mesh) -> list:
 
 def _white_blocks(generator, mesh, local) -> list:
     """Per-shard unit white noise of shape ``local`` from :func:`shard_generators`."""
-    return [torch.randn(local, generator=g, device=dev, dtype=torch.float32)
-            for g, dev in zip(shard_generators(generator, mesh), mesh.devices.flat)]
+    return each(lambda g, dev: torch.randn(local, generator=g, device=dev, dtype=torch.float32),
+                shard_generators(generator, mesh), list(mesh.devices.flat))
 
 
 def gaussian_random_field_sharded(generator, n: int, mesh, boxsize: float, k_table, p_table, *,
@@ -75,11 +86,12 @@ def gaussian_random_field_sharded(generator, n: int, mesh, boxsize: float, k_tab
     if white is None:
         w = _white_blocks(generator, mesh, tuple(n // m for m in mesh_shape))
     else:
-        w = [p.float() for p in as_sharded(white, mesh, (0, 1, 2)).parts]
+        w = each(lambda p: p.float(), as_sharded(white, mesh, (0, 1, 2)).parts)
     wk = _fft3_local(w, mesh_shape)
     del w
-    out = []
-    for i, c in enumerate(shard_coords(mesh_shape)):
+    coords = shard_coords(mesh_shape)
+    for i in mesh.local_indices():
+        c = coords[i]
         if fixed_amplitude:
             # unit-modulus modes (the variance-suppressed "fixed" ICs): |W| -> sqrt(N^3)
             mag = wk[i].abs()
@@ -87,8 +99,9 @@ def gaussian_random_field_sharded(generator, n: int, mesh, boxsize: float, k_tab
                 * float(n) ** 1.5
         kmag = _local_kmag(n, boxsize, mesh_shape, c, wk[i].device)
         # amp is 0 at k=0 (_interp_pk zeroes kmag == 0), so no DC to clear
-        wk[i] = wk[i] * torch.sqrt(_interp_pk(kmag, k_table, p_table) * (float(n) ** 3 / boxsize**3))
-    out = [x.real.float() for x in _ifft3_local(wk, mesh_shape)]
+        amp = torch.sqrt(_interp_pk(kmag, k_table, p_table) * (float(n) ** 3 / boxsize**3))
+        wk[i] = wk[i] * amp
+    out = each(lambda x: x.real.float(), _ifft3_local(wk, mesh_shape))
     return ShardedField(mesh, (n, n, n), (0, 1, 2), out)
 
 
@@ -103,21 +116,25 @@ def zeldovich_displacement_sharded(delta, mesh, boxsize: float) -> ShardedField:
     n = delta.shape[0]
     mesh_shape = mesh.spatial_shape()
     _check_geometry(n, mesh_shape)
-    dk = _fft3_local([p.float() for p in delta.parts], mesh_shape)
+    dk = _fft3_local(each(lambda p: p.float(), delta.parts), mesh_shape)
     nyq = n // 2 * (2.0 * np.pi / boxsize)
-    coefs = []
-    for c, d in zip(shard_coords(mesh_shape), dk):
+
+    def coef(d, c):
         kx, ky, kz = _local_kvec(n, boxsize, mesh_shape, c, d.device)
         k2 = kx[:, None, None] ** 2 + ky[None, :, None] ** 2 + kz[None, None, :] ** 2
         inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
         kd = [torch.where(k.abs() == nyq, 0.0, k) for k in (kx, ky, kz)]
-        coefs.append((kd[0][:, None, None], kd[1][None, :, None], kd[2][None, None, :], inv_k2))
-    psi = [torch.empty((3,) + tuple(d.shape), dtype=torch.float32, device=d.device) for d in dk]
+        return kd[0][:, None, None], kd[1][None, :, None], kd[2][None, None, :], inv_k2
+
+    coefs = each(coef, dk, shard_coords(mesh_shape))
+    psi = each(lambda d: torch.empty((3,) + tuple(d.shape), dtype=torch.float32,
+                                     device=d.device), dk)
     for axis in range(3):
-        comp = _ifft3_local([d * (1j * (cf[axis] * cf[3])) for d, cf in zip(dk, coefs)],
+        comp = _ifft3_local(each(lambda d, cf: d * (1j * (cf[axis] * cf[3])), dk, coefs),
                             mesh_shape)
         for p, x in zip(psi, comp):
-            p[axis] = x.real
+            if p is not None:
+                p[axis] = x.real
     return ShardedField(mesh, (3, n, n, n), (1, 2, 3), psi)
 
 
@@ -162,15 +179,18 @@ def _tap_index(base, q, n: int, start: int, size: int, sharded: bool):
 
 def _halo_reduce(grids, mesh_shape, axis: int, margin: int):
     """Add every shard's pad slabs along ``axis`` into the neighbours that own
-    those cells (in place)."""
+    those cells (in place; ``None`` for another process's shard)."""
     if mesh_shape[axis] == 1 or margin == 0:
         return
-    size = grids[0].shape[axis]
+    size = next(g for g in grids if g is not None).shape[axis]
     # my low pad covers my lower neighbour's top interior cells (and vice versa)
-    from_upper = ppermute_shift([g.narrow(axis, 0, margin) for g in grids], mesh_shape, axis, -1)
-    from_lower = ppermute_shift([g.narrow(axis, size - margin, margin) for g in grids],
+    from_upper = ppermute_shift(each(lambda g: g.narrow(axis, 0, margin), grids), mesh_shape,
+                                axis, -1)
+    from_lower = ppermute_shift(each(lambda g: g.narrow(axis, size - margin, margin), grids),
                                 mesh_shape, axis, 1)
     for g, up, lo in zip(grids, from_upper, from_lower):
+        if g is None:
+            continue
         g.narrow(axis, size - 2 * margin, margin).add_(up)
         g.narrow(axis, margin, margin).add_(lo)
 
@@ -189,7 +209,9 @@ def deposit_displacement_sharded(psi, mesh, boxsize: float, worder: int = 2, mar
         margin: pad depth in cells per sharded-axis side.  Must cover the
             largest displacement: ``margin >= max|psi| / (boxsize/n) +
             worder``.
-        check_margin: check that bound on the host (one small copy per shard).
+        check_margin: check that bound on the host (one small copy per shard;
+            the maximum over every process's shards, so every process raises
+            alike).
 
     Returns an (n, n, n) float32 ``ShardedField`` (mean 1).
     """
@@ -205,8 +227,7 @@ def deposit_displacement_sharded(psi, mesh, boxsize: float, worder: int = 2, mar
     if check_margin:
         # Only sharded axes need margin: whole axes wrap periodically (margin
         # 0), so their displacement components are unconstrained.
-        comp_max = torch.stack([p.abs().amax(dim=(1, 2, 3)).float().cpu()
-                                for p in psi.parts]).amax(0)
+        comp_max = pmax(each(lambda p: p.abs().amax(dim=(1, 2, 3)).float(), psi.parts)).cpu()
         for d in range(3):
             if mesh_shape[d] == 1:
                 continue
@@ -223,8 +244,10 @@ def deposit_displacement_sharded(psi, mesh, boxsize: float, worder: int = 2, mar
                              f"n/mesh >= margin")
     padded = tuple(ln + 2 * mg for ln, mg in zip(local, margins))
     inv_cell = _recip(cell)
-    grids = []
-    for c, p in zip(shard_coords(mesh_shape), psi.parts):
+    grids = [None] * len(psi.parts)
+    coords = shard_coords(mesh_shape)
+    for i in psi.local_indices():
+        c, p = coords[i], psi.parts[i]
         axes = []
         for d in range(3):
             # the particles' global Lagrangian indices and, as ``mas.deposit_displacement``
@@ -240,12 +263,12 @@ def deposit_displacement_sharded(psi, mesh, boxsize: float, worder: int = 2, mar
             del x
             axes.append((_tap_index(base, q, n, c[d] * local[d] - margins[d], padded[d],
                                     margins[d] > 0), _kernel_weights(frac, worder)))
-        grids.append(_deposit_local(axes, padded))
+        grids[i] = _deposit_local(axes, padded)
         del axes
     for d in range(3):
         _halo_reduce(grids, mesh_shape, d, margins[d])
-    out = [g[margins[0]:margins[0] + local[0], margins[1]:margins[1] + local[1],
-             margins[2]:margins[2] + local[2]].contiguous() for g in grids]
+    out = each(lambda g: g[margins[0]:margins[0] + local[0], margins[1]:margins[1] + local[1],
+                           margins[2]:margins[2] + local[2]].contiguous(), grids)
     return ShardedField(mesh, (n, n, n), (0, 1, 2), out)
 
 
@@ -256,19 +279,21 @@ def deconvolve_mas_sharded(delta, mesh, worder: int) -> ShardedField:
     n = delta.shape[0]
     mesh_shape = mesh.spatial_shape()
     _check_geometry(n, mesh_shape)
-    dk = _fft3_local([p.float() for p in delta.parts], mesh_shape)
+    dk = _fft3_local(each(lambda p: p.float(), delta.parts), mesh_shape)
 
     def sinc_pw(f):
         x = np.pi * f
         big = x.abs() > 1e-12
         return torch.where(big, torch.sin(x) / torch.where(big, x, 1.0), 1.0) ** worder
 
-    for i, c in enumerate(shard_coords(mesh_shape)):
+    coords = shard_coords(mesh_shape)
+    for i in delta.local_indices():
+        c = coords[i]
         # the mode number / n: wavenumbers of a box of side 2 pi n
         kx, ky, kz = _local_kvec(n, 2.0 * np.pi * n, mesh_shape, c, dk[i].device)
         w = sinc_pw(kx)[:, None, None] * sinc_pw(ky)[None, :, None] * sinc_pw(kz)[None, None, :]
         dk[i] = dk[i] / torch.clamp(w, min=1e-8)
-    return delta.like([x.real.float() for x in _ifft3_local(dk, mesh_shape)])
+    return delta.like(each(lambda x: x.real.float(), _ifft3_local(dk, mesh_shape)))
 
 
 def displacement_to_density_sharded(psi, mesh, boxsize: float, worder: int = 2,
@@ -279,6 +304,6 @@ def displacement_to_density_sharded(psi, mesh, boxsize: float, worder: int = 2,
     MAS window."""
     rho = deposit_displacement_sharded(psi, mesh, boxsize, worder=worder, margin=margin,
                                        check_margin=check_margin)
-    for p in rho.parts:
+    for p in rho.local_parts:
         p.sub_(1.0)
     return deconvolve_mas_sharded(rho, mesh, worder) if deconvolve else rho

@@ -17,7 +17,11 @@ device; here the field stays block-sharded over the 3D mesh
     float64, as ``powerspec._shell_average`` does; the shards' partial sums
     are added (``collectives.psum``) and rounded once to float32.
 
-The binned results are float32 tensors on the mesh's first device.
+The binned results are float32 tensors on the first device of this
+process's shards.  In a multi-process run (``parallel.distributed.
+initialize``) each process transforms and bins its own shards, the
+all-to-alls and sums cross processes (``parallel.collectives``), and every
+process gets the same spectrum, equal to the one-process mesh's bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import all_to_all_tiled, as_sharded, psum
+from ..parallel.collectives import all_to_all_tiled, as_sharded, each, psum
 from ..parallel.mesh import shard_coords
 from .powerspec import _bin_edges
 
@@ -51,7 +55,7 @@ def _pencil(parts, mesh_shape, transform):
     for axis, dim, other in ((2, 2, 0), (1, 1, 0), (0, 0, 1)):
         if mesh_shape[axis] > 1:
             parts = all_to_all_tiled(parts, mesh_shape, axis, split_axis=other, concat_axis=dim)
-        parts = [transform(p, dim=dim) for p in parts]
+        parts = each(lambda p: transform(p, dim=dim), parts)
         if mesh_shape[axis] > 1:
             parts = all_to_all_tiled(parts, mesh_shape, axis, split_axis=dim, concat_axis=other)
     return parts
@@ -59,7 +63,7 @@ def _pencil(parts, mesh_shape, transform):
 
 def _fft3_local(parts, mesh_shape):
     """Full 3D complex FFT of a block-sharded field (complex64 blocks out)."""
-    return _pencil([p.to(torch.complex64) for p in parts], mesh_shape, torch.fft.fft)
+    return _pencil(each(lambda p: p.to(torch.complex64), parts), mesh_shape, torch.fft.fft)
 
 
 def _ifft3_local(parts, mesh_shape):
@@ -86,9 +90,10 @@ def _local_kmag(n: int, boxsize: float, mesh_shape, coords, device):
 
 def _bin_local(kmags, quantities, edges, nbins: int):
     """Per-shard float64 shell sums, added over the shards, rounded once to
-    float32: (shell-mean |k|, shell-mean quantity, counts) on the first device."""
-    partial = []
-    for kmag, q in zip(kmags, quantities):
+    float32: (shell-mean |k|, shell-mean quantity, counts) on this process's
+    first device."""
+
+    def sums_of(kmag, q):
         e = edges.to(kmag.device)
         kflat = kmag.reshape(-1)
         idx = (torch.searchsorted(e, kflat) - 1).clamp_(0, nbins - 1)
@@ -96,8 +101,9 @@ def _bin_local(kmags, quantities, edges, nbins: int):
         sums = torch.zeros((3, nbins), dtype=torch.float64, device=kmag.device)
         for row, v in enumerate((w, w * kflat.double(), w * q.reshape(-1).double())):
             sums[row].index_add_(0, idx, v)
-        partial.append(sums)
-    counts, ksum, qsum = psum(partial).float()
+        return sums
+
+    counts, ksum, qsum = psum(each(sums_of, kmags, quantities)).float()
     counts = torch.clamp(counts, min=1e-30)
     return ksum / counts, qsum / counts, counts
 
@@ -108,16 +114,16 @@ def _binned_spectrum(fields, mesh, boxsize: float, nbins, cross: bool):
     _check_geometry(n, mesh_shape)
     fields = [as_sharded(f, mesh, (0, 1, 2)) for f in fields]
     nbins = nbins or n // 2
-    edges = _bin_edges(n, boxsize, nbins, fields[0].parts[0].device)
-    specs = [_fft3_local([p.float() for p in f.parts], mesh_shape) for f in fields]
+    edges = _bin_edges(n, boxsize, nbins, fields[0].local_parts[0].device)
+    specs = [_fft3_local(each(lambda p: p.float(), f.parts), mesh_shape) for f in fields]
     norm = boxsize**3 / float(n) ** 6
     if cross:
-        q = [(a.real * b.real + a.imag * b.imag) * norm for a, b in zip(*specs)]
+        q = each(lambda a, b: (a.real * b.real + a.imag * b.imag) * norm, *specs)
     else:
-        q = [(a.real**2 + a.imag**2) * norm for a in specs[0]]
+        q = each(lambda a: (a.real**2 + a.imag**2) * norm, specs[0])
     del specs
-    kmags = [_local_kmag(n, boxsize, mesh_shape, c, p.device)
-             for c, p in zip(shard_coords(mesh_shape), q)]
+    kmags = each(lambda p, c: _local_kmag(n, boxsize, mesh_shape, c, p.device), q,
+                 shard_coords(mesh_shape))
     return _bin_local(kmags, q, edges, nbins)
 
 
@@ -132,8 +138,9 @@ def power_spectrum_sharded(delta, mesh, boxsize: float, nbins=None):
         nbins: number of k shells (default N/2).
 
     Returns:
-        (k, Pk, Nmodes), float32 tensors on the mesh's first device, matching
-        ``science.powerspec.power_spectrum`` up to float reordering.
+        (k, Pk, Nmodes), float32 tensors on this process's first device,
+        matching ``science.powerspec.power_spectrum`` up to float reordering
+        (the same on every process of a multi-process run).
     """
     return _binned_spectrum((delta,), mesh, boxsize, nbins, cross=False)
 
@@ -158,12 +165,12 @@ def _moments(a, b) -> dict:
     """Field moments of two sharded fields from per-shard float64 sums (two
     passes: the means, then the central moments); nothing is gathered."""
     count = float(np.prod(a.shape))
-    pa, pb = [p.double() for p in a.parts], [p.double() for p in b.parts]
-    ma = float(psum([p.sum() for p in pa])) / count
-    mb = float(psum([p.sum() for p in pb])) / count
+    pa, pb = each(lambda p: p.double(), a.parts), each(lambda p: p.double(), b.parts)
+    ma = float(psum(each(lambda p: p.sum(), pa))) / count
+    mb = float(psum(each(lambda p: p.sum(), pb))) / count
 
     def mean_of(fn):
-        return float(psum([fn(x, y).sum() for x, y in zip(pa, pb)])) / count
+        return float(psum(each(lambda x, y: fn(x, y).sum(), pa, pb))) / count
 
     sa = mean_of(lambda x, y: (x - ma) ** 2) ** 0.5
     sb = mean_of(lambda x, y: (y - mb) ** 2) ** 0.5

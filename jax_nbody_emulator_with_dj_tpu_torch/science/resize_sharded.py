@@ -11,7 +11,9 @@ shard builds its block of the fine spectrum by gathering from the coarse
 spectrum through the inverse of the single-device ``_axis_map`` (the coarse
 Nyquist's half-half split included), and the injected high-k modes come from
 per-shard white noise pushed through the pencil FFT, globally Hermitian
-because the noise is real in configuration space.
+because the noise is real in configuration space.  In a multi-process run
+(``parallel.distributed.initialize``) every process holds the coarse field,
+and builds and transforms its own shards of the fine one.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import ShardedField, as_sharded
+from ..parallel.collectives import ShardedField, as_sharded, each
 from ..parallel.mesh import shard_coords
 from .field_sharded import _white_blocks
 from .grf import _interp_pk
@@ -90,15 +92,17 @@ def upsample_modes_sharded(delta_coarse, n_out: int, mesh, boxsize: float, k_tab
     k_nyq_coarse = 2 * np.pi / boxsize * (n_in // 2)
     if inject:
         if white is not None:
-            noise = [p.float() for p in as_sharded(white, mesh, (0, 1, 2)).parts]
+            noise = each(lambda p: p.float(), as_sharded(white, mesh, (0, 1, 2)).parts)
         else:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             noise = _white_blocks(generator, mesh, local)
         wk = _fft3_local(noise, mesh_shape)
         del noise
-    dk = []
-    for i, (c, dev) in enumerate(zip(shard_coords(mesh_shape), mesh.devices.flat)):
+    dk = [None] * mesh.size
+    coords = shard_coords(mesh_shape)
+    for i in mesh.local_indices():
+        c, dev = coords[i], mesh.devices.flat[i]
         idx = [c[d] * local[d] + torch.arange(local[d], device=dev) for d in range(3)]
         sw = [_axis_src_w(v, n_in, n_out) for v in idx]
         low = dk_c[dev][sw[0][0]][:, sw[1][0]][:, :, sw[2][0]]
@@ -110,10 +114,10 @@ def upsample_modes_sharded(delta_coarse, n_out: int, mesh, boxsize: float, k_tab
             wk[i] = None
             if all(v == 0 for v in c):  # single-device upsample_modes zeroes the DC (mean) mode
                 blk[0, 0, 0] = 0.0
-        dk.append(blk)
+        dk[i] = blk
     del dk_c
     return ShardedField(mesh, (n_out,) * 3, (0, 1, 2),
-                        [x.real.float() for x in _ifft3_local(dk, mesh_shape)])
+                        each(lambda x: x.real.float(), _ifft3_local(dk, mesh_shape)))
 
 
 def upsample_fourier_sharded(delta_coarse, n_out: int, mesh) -> ShardedField:
@@ -136,10 +140,11 @@ def downsample_average_sharded(delta, n_out: int, mesh) -> ShardedField:
             raise ValueError(f"block factor {f} must divide the local extent "
                              f"{n_in}/{tuple(mesh_shape)}")
     delta = as_sharded(delta, mesh, (0, 1, 2))
-    parts = []
-    for p in delta.parts:
+    def block_mean(p):
         l0, l1, l2 = p.shape
-        parts.append(p.reshape(l0 // f, f, l1 // f, f, l2 // f, f).mean(dim=(1, 3, 5)))
+        return p.reshape(l0 // f, f, l1 // f, f, l2 // f, f).mean(dim=(1, 3, 5))
+
+    parts = each(block_mean, delta.parts)
     return ShardedField(mesh, (n_out,) * 3, (0, 1, 2), parts)
 
 
@@ -150,9 +155,11 @@ def gaussian_smooth_sharded(delta, mesh, boxsize: float, r_smooth: float) -> Sha
     n = delta.shape[0]
     mesh_shape = mesh.spatial_shape()
     _check_geometry(n, mesh_shape)
-    dk = _fft3_local([p.float() for p in delta.parts], mesh_shape)
-    for i, c in enumerate(shard_coords(mesh_shape)):
+    dk = _fft3_local(each(lambda p: p.float(), delta.parts), mesh_shape)
+    coords = shard_coords(mesh_shape)
+    for i in delta.local_indices():
+        c = coords[i]
         kx, ky, kz = _local_kvec(n, boxsize, mesh_shape, c, dk[i].device)
         k2 = kx[:, None, None] ** 2 + ky[None, :, None] ** 2 + kz[None, None, :] ** 2
         dk[i] = dk[i] * torch.exp(-0.5 * k2 * r_smooth**2)
-    return delta.like([x.real.float() for x in _ifft3_local(dk, mesh_shape)])
+    return delta.like(each(lambda x: x.real.float(), _ifft3_local(dk, mesh_shape)))

@@ -14,6 +14,11 @@ validation suite: every diagnostic runs with the field left block-sharded.
 * **Reduced bispectrum Q(theta)**: the FFT-binned estimator is a handful of
   band-filtered inverse FFTs and global sums: pencil transforms
   (``powerspec_sharded``) and per-shard sums (float64) added over the shards.
+
+In a multi-process run (``parallel.distributed.initialize``) each process
+counts and sums its own shards; the planes, the transforms and the sums cross
+processes through ``parallel.collectives``, and every process gets the same
+result, the one-process mesh's bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import as_sharded, ppermute_shift, psum
+from ..parallel.collectives import as_sharded, each, ppermute_shift, psum
 from ..parallel.mesh import shard_coords
 from .minkowski import _functionals
 from .powerspec_sharded import _check_geometry, _fft3_local, _ifft3_local, _local_kmag
@@ -31,10 +36,10 @@ def _extend_low(parts, mesh_shape):
     """Prepend each axis's global index-1 neighbour plane (periodic) to every block."""
     ext = list(parts)
     for ax, m in enumerate(mesh_shape):
-        last = [e.narrow(ax, e.shape[ax] - 1, 1) for e in ext]
+        last = each(lambda e: e.narrow(ax, e.shape[ax] - 1, 1), ext)
         if m > 1:
             last = ppermute_shift(last, mesh_shape, ax, 1)  # my last plane fronts the next shard
-        ext = [torch.cat([lo, e], ax) for lo, e in zip(last, ext)]
+        ext = each(lambda lo, e: torch.cat([lo, e], ax), last, ext)
     return ext
 
 
@@ -67,7 +72,7 @@ def _local_counts(ext, local):
 def minkowski_functionals_sharded(delta, thresholds, mesh):
     """V0..V3 of the excursion sets of a mesh-sharded field.
 
-    Returns a (T, 4) float32 tensor on the mesh's first device, equal to
+    Returns a (T, 4) float32 tensor on this process's first device, equal to
     ``minkowski.minkowski_functionals`` on the whole field (the global counts
     are exact int64 sums).
     """
@@ -77,11 +82,11 @@ def minkowski_functionals_sharded(delta, thresholds, mesh):
             raise ValueError(f"grid {tuple(delta.shape)} not divisible by {tuple(mesh_shape)}")
     delta = as_sharded(delta, mesh, (0, 1, 2))
     local = delta.local_shape
-    ext = _extend_low([p.float() for p in delta.parts], mesh_shape)
+    ext = _extend_low(each(lambda p: p.float(), delta.parts), mesh_shape)
     thresholds = torch.as_tensor(thresholds, dtype=torch.float32).reshape(-1)
     rows = []
     for t in thresholds.tolist():
-        counts = psum([_local_counts(e > t, local) for e in ext])
+        counts = psum(each(lambda e: _local_counts(e > t, local), ext))
         rows.append(_functionals(*counts.float(), float(np.prod(delta.shape))))
     return torch.stack(rows)
 
@@ -104,17 +109,18 @@ def reduced_bispectrum_sharded(delta, mesh, boxsize: float, k1: float, k2: float
     n3_f = float(n) ** 3
     thetas = np.asarray(thetas, np.float64)
     k3s = np.sqrt(k1**2 + k2**2 + 2 * k1 * k2 * np.cos(thetas))
-    dk = _fft3_local([p.float() for p in delta.parts], mesh_shape)
-    kmag = [_local_kmag(n, boxsize, mesh_shape, c, d.device)
-            for c, d in zip(shard_coords(mesh_shape), dk)]
+    dk = _fft3_local(each(lambda p: p.float(), delta.parts), mesh_shape)
+    kmag = each(lambda d, c: _local_kmag(n, boxsize, mesh_shape, c, d.device), dk,
+                shard_coords(mesh_shape))
 
     def band(kc):
-        mask = [((k >= kc - half) & (k < kc + half)).to(torch.complex64) for k in kmag]
-        return ([x.real for x in _ifft3_local([d * m for d, m in zip(dk, mask)], mesh_shape)],
-                [x.real for x in _ifft3_local(mask, mesh_shape)])
+        mask = each(lambda k: ((k >= kc - half) & (k < kc + half)).to(torch.complex64), kmag)
+        return (each(lambda x: x.real, _ifft3_local(each(lambda d, m: d * m, dk, mask),
+                                                     mesh_shape)),
+                each(lambda x: x.real, _ifft3_local(mask, mesh_shape)))
 
     def gsum(fn, *fields):
-        return psum([fn(*f).sum(dtype=torch.float64) for f in zip(*fields)]).float()
+        return psum(each(lambda *f: fn(*f).sum(dtype=torch.float64), *fields)).float()
 
     def pk_of_band(i_f, n_f):
         return v / n3_f * gsum(lambda x: x**2, i_f) / torch.clamp(gsum(lambda x: x**2, n_f),

@@ -433,9 +433,8 @@ def test_run_pod_on_cpu_mesh(tmp_path, capsys):
 
 def test_run_pod_refuses_what_it_cannot_run():
     base = ["--size", "32", "--mid-chan", "4", "--device", "cpu", "--devices", "cpu"]
-    with pytest.raises(NotImplementedError, match="A10b"):
-        run_pod.main([*base, "--coordinator", "localhost:1234", "--num-processes", "2",
-                      "--process-id", "0"])
+    with pytest.raises(ValueError, match="the number of processes"):  # --num-processes missing
+        run_pod.main([*base, "--coordinator", "localhost:1234", "--process-id", "0"])
     with pytest.raises(ValueError, match="needs 8 devices"):
         run_pod.main(["--size", "32", "--mid-chan", "4", "--device", "cpu", "--mesh", "2", "2",
                       "2", "--devices", "cpu", "cpu"])

@@ -284,15 +284,49 @@ def test_initialize_is_a_noop_in_one_process(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(coordinator_address="localhost:1234"),
                                 dict(num_processes=2), dict(process_id=0)])
-def test_initialize_with_a_coordinator_raises(kw):
-    with pytest.raises(NotImplementedError, match="A10b"):
+def test_initialize_with_a_coordinator_raises(kw, monkeypatch):
+    """An incomplete coordinator: there is no metadata server to ask."""
+    for name in (*distributed.COORDINATOR_ENV, distributed.NUM_PROCESSES_ENV,
+                 distributed.PROCESS_ID_ENV):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="needs a coordinator address"):
         initialize(**kw)
+    assert not torch.distributed.is_initialized()
 
 
 def test_initialize_with_a_coordinator_in_the_environment_raises(monkeypatch):
+    for name in (distributed.NUM_PROCESSES_ENV, distributed.PROCESS_ID_ENV):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="needs a coordinator address"):
         initialize()
+
+
+@pytest.mark.parametrize("from_env", [False, True])
+def test_initialize_with_a_full_coordinator_joins(from_env, monkeypatch):
+    """A complete coordinator joins a gloo group (here of one process, which
+    behaves as no group); ``shutdown`` leaves it."""
+    from jax_nbody_emulator_with_dj_tpu_torch.experiments.mp_box import free_port
+
+    address = f"127.0.0.1:{free_port()}"
+    if from_env:
+        monkeypatch.setenv("COORDINATOR_ADDRESS", address)
+        monkeypatch.setenv(distributed.NUM_PROCESSES_ENV, "1")
+        monkeypatch.setenv(distributed.PROCESS_ID_ENV, "0")
+        initialize(timeout=60)
+    else:
+        initialize(address, 1, 0, timeout=60)
+    try:
+        assert torch.distributed.is_initialized() and torch.distributed.get_backend() == "gloo"
+        assert (distributed.process_index(), distributed.process_count()) == (0, 1)
+        mesh = cpu_mesh((2, 2, 2))
+        assert mesh.local_indices() == list(range(8))
+        assert distributed.process_local_devices(mesh) == [CPU] * 8
+    finally:
+        distributed.shutdown()
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="not in 0 .. 1"):
+        initialize(address, 2, 2)
 
 
 def test_make_sharded_box_assembles_the_global_box():
@@ -605,6 +639,7 @@ def test_parallel_modules_load_no_jax():
         "import jax_nbody_emulator_with_dj_tpu_torch.science.field_sharded\n"
         "import jax_nbody_emulator_with_dj_tpu_torch.science.resize_sharded\n"
         "import jax_nbody_emulator_with_dj_tpu_torch.science.stats_sharded\n"
+        "import jax_nbody_emulator_with_dj_tpu_torch.experiments.mp_box\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'jax_nbody_emulator_with_dj_tpu']\n"
         "assert not bad, bad\n"
